@@ -1,0 +1,41 @@
+"""The PyTorch port stands alone: no module of ``xfemm_tpu_torch``, and
+not ``chip_smoke.py``, imports jax or the JAX package ``xfemm_tpu``."""
+
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, pkgutil, runpy, sys
+sys.path.insert(0, {root!r})
+import xfemm_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    xfemm_tpu_torch.__path__, "xfemm_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path({smoke!r}, run_name="chip_smoke_probe")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "xfemm_tpu" or m.startswith("xfemm_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_no_jax():
+    code = _PROBE.format(root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.split()
+    assert int(out[0]) >= 20          # every module was imported
+    assert out[1] == "[]", out
+
+
+def test_no_import_statement_names_jax():
+    import re
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|xfemm_tpu)\b",
+                     re.M)
+    files = list((ROOT / "xfemm_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert hits == []

@@ -1,0 +1,628 @@
+"""Linear solve of the FEM systems: host f64 refinement around a device
+f32 band CG.
+
+The convergence contract matches the reference's SSOR-PCG
+(cfemm/libfemm/spars.cpp:300-313): iterate until the Jacobi-weighted
+residual ``sqrt(r.D^-1.r / b.D^-1.b) <= tol``. The element matrices stay
+on the host in f64 (a scipy CSR used for residuals and the stopping
+metric); the device runs CG in f32 on correction systems
+``A d = r/||r||`` and the f64 solution accumulates on the host
+(mixed-precision iterative refinement). The device CG is the band
+engine: the RCM-ordered operator as a dense band (ops/band.py) with the
+block-tridiagonal factor (ops/blocktri.py) as preconditioner -- the
+regime the planner picks for the 250k problem ("bt-alone").
+
+The device is f32 on every platform, the card included: the band
+engine is the solver here, whatever f64 support the device has.
+
+Regimes that this port does not carry yet raise ``NotImplementedError``:
+problems too small for the band engine (element-block Jacobi CG and
+ELL-AMG), symmetric / bf16 / partitioned band plans and the band-AMG
+V-cycle (1M-class slice), and the recovery paths that drop a stale
+factor for the V-cycle or latch the band engine off.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+from typing import NamedTuple
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+LATER_SMALL = ("is not ported yet: problems at or below 4*ROW_TILE_MIN "
+               "unknowns (or without DOF coordinates) take the element-"
+               "block Jacobi / ELL-AMG path of a later slice")
+LATER_1M = ("is not ported yet: it belongs to the 1M-class slice of the "
+            "PyTorch port")
+
+
+class ElementBlock(NamedTuple):
+    """A batch of dense element matrices acting on gathered DOFs.
+
+    ``idx``: (E, K) reduced DOF index per element corner,
+    ``sign``: (E, K) +-1 prolongation signs (antiperiodic folds),
+    ``mat``: (E, K, K) element matrices (host f64). The assembled
+    operator is ``y += P^T (mat @ (P x))`` summed over blocks, with P the
+    index/sign prolongation."""
+
+    idx: np.ndarray
+    sign: np.ndarray
+    mat: np.ndarray
+
+
+def resolve_device(device=None) -> torch.device:
+    """The solve's device: CUDA unless the caller names another. Raises
+    when CUDA is asked for (or defaulted to) and unavailable."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to "
+                           "run the plain PyTorch path on the host")
+    return dev
+
+
+def device_hbm_bytes(device, hbm: float | None = None) -> float:
+    """Device memory the band planner may plan against: the card's total
+    memory from ``torch.cuda.mem_get_info`` on CUDA; an explicit value
+    (``hbm``) elsewhere, and on any device when given."""
+    if hbm is not None:
+        return float(hbm)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        _free, total = torch.cuda.mem_get_info(dev)
+        return float(total)
+    raise ValueError("device_hbm_bytes: pass an explicit memory size "
+                     "(hbm=...) for a non-CUDA device")
+
+
+def _blocks_coo(blocks):
+    rows, cols, data = [], [], []
+    for b in blocks:
+        idx = np.asarray(b.idx)
+        sign = np.asarray(b.sign, np.float64)
+        mat = np.asarray(b.mat, np.float64)
+        E, K = idx.shape
+        rows.append(np.broadcast_to(idx[:, :, None], (E, K, K)).ravel())
+        cols.append(np.broadcast_to(idx[:, None, :], (E, K, K)).ravel())
+        data.append((sign[:, :, None] * sign[:, None, :] * mat).ravel())
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(data)
+
+
+def blocks_to_csr(blocks, n: int):
+    """Assemble host-side f64 CSR from element blocks (residual path)."""
+    rows, cols, data = _blocks_coo(blocks)
+    return sp.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()
+
+
+ROW_TILE_MIN = 512
+
+_BAND_CACHE: "collections.OrderedDict[bytes, dict]" = collections.OrderedDict()
+_BAND_CACHE_MAX = 2
+_PATTERN_CACHE: "collections.OrderedDict[bytes, tuple]" = \
+    collections.OrderedDict()
+_PATTERN_CACHE_MAX = 2
+
+
+def _pattern_cache_key(blocks, n, fixed) -> bytes:
+    """Structure signature of the element blocks: the COO->CSR dedup
+    maps depend only on the index topology and the Dirichlet set."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.int64(n).tobytes())
+    for b in blocks:
+        h.update(np.ascontiguousarray(b.idx).tobytes())
+        h.update(np.ascontiguousarray(b.sign).tobytes())
+    if fixed is not None:
+        h.update(np.packbits(np.asarray(fixed, bool)).tobytes())
+    return h.digest()
+
+
+def _band_cache_key(At, fixed, device) -> bytes:
+    """Pattern signature of a Dirichlet-eliminated CSR on one device.
+    Repeated solves over the same mesh adopt the existing band and
+    factor; their values are refreshed per call and the staleness rule
+    refactors when the operator has drifted."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(torch.device(device)).encode())
+    h.update(np.int64(At.shape[0]).tobytes())
+    h.update(At.indptr.tobytes())
+    h.update(At.indices.tobytes())
+    if fixed is not None:
+        h.update(np.packbits(np.asarray(fixed, bool)).tobytes())
+    return h.digest()
+
+
+def _band_bytes_estimate(Ap, row_tile: int, sym: bool = False,
+                         itemsize: int = 4) -> float:
+    """Bytes the dense band of ``Ap`` would hold, net of the sidecar
+    split band.plan_level would apply."""
+    n = Ap.shape[0]
+    if Ap.nnz == 0:
+        return 0.0
+    from . import band as band_mod
+    deg = np.diff(Ap.indptr)
+    rows = np.repeat(np.arange(n), deg)
+    dist = np.abs(rows - Ap.indices)
+    if sym:
+        dist = dist[Ap.indices >= rows]
+    R, cut, _split = band_mod.plan_level(dist, n, sym=sym)
+    return band_mod._band_est(n, cut, R, sym, itemsize)
+
+
+def _csr_perm_map(At, Ap, perm, iperm):
+    """Entry map m with Ap.data == At.data[m] (pattern-only, cached)."""
+    n = At.shape[0]
+    deg = np.diff(At.indptr)
+    rows = np.repeat(np.arange(n), deg)
+    pr = iperm[rows]
+    pc = iperm[At.indices]
+    order = np.lexsort((pc, pr))
+    ap_rows = np.repeat(np.arange(n), np.diff(Ap.indptr))
+    assert np.array_equal(ap_rows, pr[order])
+    assert np.array_equal(Ap.indices, pc[order])
+    return order
+
+
+def _permuted_data(At, entry_map):
+    return At.data[entry_map]
+
+
+def pick_parts(n: int, min_part: int = 48_000, max_parts: int = 16) -> int:
+    """Number of RCB parts a partitioned ordering would use."""
+    parts = 1
+    while parts < max_parts and n // (2 * parts) >= min_part:
+        parts *= 2
+    return parts
+
+
+def pick_band_order(At, coords, hbm: float) -> np.ndarray:
+    """The band engine's ordering: global RCM when the fine block-
+    tridiagonal factor fits next to the RCM band. Otherwise the JAX
+    package partitions the ordering (RCB parts with in-part RCM), which
+    this slice does not carry and raises for."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    n = At.shape[0]
+    perm = np.asarray(reverse_cuthill_mckee(At, symmetric_mode=True))
+    if coords is not None and np.shape(coords)[0] == n and At.nnz \
+            and pick_parts(n) > 1:
+        gpos = np.empty(n, np.int64)
+        gpos[perm] = np.arange(n)
+        rows_all = np.repeat(np.arange(n), np.diff(At.indptr))
+        dist = np.abs(gpos[rows_all] - gpos[At.indices])
+        bw0 = int(dist.max()) if dist.size else 0
+        bs = bt_mod.pick_block(bw0)
+        est0 = band_mod._band_est(
+            n, bw0, band_mod.pick_row_tile(bw0, False), False)
+        if bs is None or est0 + bt_mod.factor_bytes(n, bs) \
+                + bt_mod.bt_build_transient_bytes(n, bs) > 0.78 * hbm:
+            raise NotImplementedError(
+                "a partitioned (RCB) band ordering " + LATER_1M)
+    return perm
+
+
+def plan_band_hierarchy(Ap, hbm: float):
+    """Storage-tier decisions for the band engine of an RCM-ordered
+    Dirichlet-eliminated CSR -- the JAX package's policy
+    (solver.plan_band_hierarchy) for a global RCM ordering, at a
+    caller-given device memory size. Returns ``None`` when no storage
+    tier fits, else a dict with ``sym``, ``fine_dtype`` ("bf16" or
+    None), ``act_bytes`` (bytes the fine band holds), ``bsize`` and
+    ``fine_bt_ok`` (the fine block-tridiagonal factor fits)."""
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    n = Ap.shape[0]
+    est_bytes = _band_bytes_estimate(Ap, band_mod.ROW_TILE)
+    sym = fine_dtype = None
+    if est_bytes <= 0.375 * hbm:
+        sym = False
+    elif _band_bytes_estimate(Ap, band_mod.ROW_TILE,
+                              sym=True) <= 0.69 * hbm:
+        sym = True
+    elif _band_bytes_estimate(Ap, band_mod.ROW_TILE, sym=True,
+                              itemsize=2) <= 0.5 * hbm:
+        sym = True
+        fine_dtype = "bf16"
+    if sym is None:
+        return None
+    # the factor is only worth building when it covers the COMPLETE
+    # operator band, so eligibility is judged on the full bandwidth
+    rowsA_ = np.repeat(np.arange(n), np.diff(Ap.indptr))
+    dist_ = np.abs(rowsA_ - Ap.indices.astype(np.int64))
+    bw_f = int(dist_.max()) if dist_.size else 0
+    bsize = bt_mod.pick_block(bw_f)
+    it_f = 2 if (sym and fine_dtype) else 4
+    act_full = band_mod._band_est(
+        n, bw_f, band_mod.pick_row_tile(bw_f, sym), sym, it_f)
+    if sym:
+        act_bytes = _band_bytes_estimate(
+            Ap, band_mod.ROW_TILE, sym=True,
+            itemsize=(2 if fine_dtype else 4))
+    else:
+        act_bytes = est_bytes
+    fine_bt_ok = (bsize is not None
+                  and act_full + bt_mod.factor_bytes(n, bsize)
+                  + bt_mod.bt_build_transient_bytes(n, bsize)
+                  <= 0.78 * hbm)
+    if fine_bt_ok:
+        act_bytes = act_full
+    return dict(sym=sym, fine_dtype=fine_dtype, act_bytes=act_bytes,
+                bsize=bsize, fine_bt_ok=fine_bt_ok)
+
+
+def _check_plan(plan) -> None:
+    """Raise for the plans this slice does not carry."""
+    if plan is None:
+        raise NotImplementedError("no band storage tier fits the device; "
+                                  "the fallback solver " + LATER_1M)
+    if plan["sym"]:
+        raise NotImplementedError("symmetric (triu) fine band storage "
+                                  + LATER_1M)
+    if plan["fine_dtype"]:
+        raise NotImplementedError("a bf16 fine operator " + LATER_1M)
+    if not plan["fine_bt_ok"]:
+        raise NotImplementedError("the band-AMG V-cycle preconditioner "
+                                  + LATER_1M)
+
+
+class Session:
+    """Per-(problem, mesh) solver state reused across Newton iterations:
+    the COO->CSR dedup map, the RCM ordering, the fine band and its
+    value slots, and the frozen block-tridiagonal factor, which is
+    refactored only when the inner iteration count degrades past
+    ``refresh_factor`` times the first pass's count."""
+
+    def __init__(self, refresh_factor: float = 3.0):
+        self.refresh_factor = refresh_factor
+        self.pattern = None      # (slot, indptr, indices, nnz, diag_slots)
+        self.coo = None          # (rows, cols, sign-outer, keep-mask)
+        self.first_iters = None
+        self.last_iters = None
+        self.perm = None         # RCM permutation + inverse
+        self.band_amg = None
+        self.band_layout = None
+        self.band_data_map = None
+        self.band_flat_idx = None   # device slot indices for fine values
+        self.band_ckey = None
+        self.bt = None           # BTFactor
+        self.bt_maps = None      # BTDeviceMaps, or BTLayout (chunked)
+        self.bt_shape = None     # (b, NB)
+        self.vals_static = None
+        self.sub_cache = None
+
+    def csr_values(self, blocks, n, fixed=None, changed=None):
+        """Dirichlet-eliminated CSR of the blocks using a cached pattern.
+
+        The first call builds the COO->CSR dedup map (with every diagonal
+        present); later calls are value-only: mask fixed rows/columns,
+        bincount into CSR slots, set unit diagonals. ``changed``
+        (optional): per-block boolean element masks marking the only
+        elements whose matrices differ from the previous call; the
+        contribution of every unchanged entry is frozen after the first
+        call, so later calls bincount only the changed slice."""
+        if self.coo is None:
+            pkey = _pattern_cache_key(blocks, n, fixed)
+            hit = _PATTERN_CACHE.get(pkey)
+            if hit is not None:
+                _PATTERN_CACHE.move_to_end(pkey)
+                self.coo, self.pattern = hit
+            else:
+                rows, cols, _ = _blocks_coo(blocks)
+                souter = [np.asarray(b.sign, np.float64)[:, :, None]
+                          * np.asarray(b.sign, np.float64)[:, None, :]
+                          for b in blocks]
+                keepf = (~fixed).astype(np.float64) if fixed is not None \
+                    else None
+                kmask = keepf[rows] * keepf[cols] if keepf is not None \
+                    else None
+                self.coo = (rows, cols, souter, kmask)
+                self._pkey = pkey
+        rows, cols, souter, kmask = self.coo
+        if (changed is not None and self.vals_static is not None
+                and self.pattern is not None):
+            slot_s, souter_s, kmask_s, ch_masks = self.sub_cache
+            parts = []
+            for so_s, b, ch in zip(souter_s, blocks, ch_masks):
+                if ch is None:
+                    continue
+                parts.append((so_s * np.asarray(b.mat, np.float64)[ch])
+                             .ravel())
+            data_s = np.concatenate(parts) if parts else \
+                np.zeros(0, np.float64)
+            if kmask_s is not None:
+                data_s = data_s * kmask_s
+            nnz = self.pattern[3]
+            vals = self.vals_static + np.bincount(
+                slot_s, weights=data_s, minlength=nnz)
+            slot, indptr, indices, nnz, diag_slots = self.pattern
+            if fixed is not None:
+                vals[diag_slots[fixed]] = 1.0
+                zero_diag = vals[diag_slots] == 0.0
+                if zero_diag.any():
+                    vals[diag_slots[zero_diag]] = 1.0
+            return sp.csr_matrix((vals, indices, indptr), shape=(n, n))
+        data = np.concatenate(
+            [(so * np.asarray(b.mat, np.float64)).ravel()
+             for so, b in zip(souter, blocks)])
+        if kmask is not None:
+            data = data * kmask
+        if self.pattern is None:
+            rows_d = np.concatenate([rows, np.arange(n)])
+            cols_d = np.concatenate([cols, np.arange(n)])
+            order = np.lexsort((cols_d, rows_d))
+            srows = rows_d[order]
+            scols = cols_d[order]
+            newgrp = np.empty(len(order), bool)
+            newgrp[0] = True
+            newgrp[1:] = (srows[1:] != srows[:-1]) | (scols[1:] != scols[:-1])
+            grp = np.cumsum(newgrp) - 1
+            nnz = int(grp[-1]) + 1
+            slot = np.empty(len(order), np.int64)
+            slot[order] = grp
+            indices = np.zeros(nnz, np.int32)
+            indices[grp] = scols.astype(np.int32)
+            uniq_rows = np.zeros(nnz, np.int64)
+            uniq_rows[grp] = srows
+            counts = np.bincount(uniq_rows, minlength=n)
+            indptr = np.concatenate([[0], np.cumsum(counts)])
+            diag_slots = slot[len(rows):]
+            self.pattern = (slot[:len(rows)], indptr.astype(np.int64),
+                            indices, nnz, diag_slots)
+            if getattr(self, "_pkey", None) is not None:
+                _PATTERN_CACHE[self._pkey] = (self.coo, self.pattern)
+                _PATTERN_CACHE.move_to_end(self._pkey)
+                while len(_PATTERN_CACHE) > _PATTERN_CACHE_MAX:
+                    _PATTERN_CACHE.popitem(last=False)
+        slot, indptr, indices, nnz, diag_slots = self.pattern
+        vals = np.bincount(slot, weights=data, minlength=nnz)
+        if changed is not None:
+            ent_masks = []
+            souter_s = []
+            ch_masks = []
+            for so, b, ch in zip(souter, blocks,
+                                 changed + [None] * (len(blocks)
+                                                     - len(changed))):
+                k = b.idx.shape[1]
+                if ch is not None and np.asarray(ch).any():
+                    chb = np.asarray(ch, bool)
+                    ent_masks.append(np.repeat(chb, k * k))
+                    souter_s.append(so[chb])
+                    ch_masks.append(chb)
+                else:
+                    ent_masks.append(np.zeros(b.idx.shape[0] * k * k, bool))
+                    souter_s.append(None)
+                    ch_masks.append(None)
+            ent = np.concatenate(ent_masks)
+            sub_idx = np.nonzero(ent)[0]
+            slot_s = slot[sub_idx]
+            kmask_s = kmask[sub_idx] if kmask is not None else None
+            self.sub_cache = (slot_s, souter_s, kmask_s, ch_masks)
+            self.vals_static = vals - np.bincount(
+                slot_s, weights=data[sub_idx], minlength=nnz)
+        if fixed is not None:
+            vals[diag_slots[fixed]] = 1.0
+            zero_diag = vals[diag_slots] == 0.0
+            if zero_diag.any():          # singularity guard (spars.cpp:245)
+                vals[diag_slots[zero_diag]] = 1.0
+        return sp.csr_matrix((vals, indices, indptr), shape=(n, n))
+
+
+_CACHED = ("perm", "band_amg", "band_layout", "band_data_map",
+           "band_flat_idx", "bt", "bt_maps", "bt_shape")
+
+#: bytes one band CG pass may stream at most (operator + factor, ~4 band
+#: lengths per iteration), the JAX package's per-pass iteration cap
+PASS_STREAM_BYTES = 6000e9
+
+
+def _build_band(session: Session, At, n: int, dev, hbm: float) -> None:
+    """Order, plan, fill the fine band and factor it."""
+    from ..utils import profiling
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    perm, iperm = session.perm
+    Ap = At[perm][:, perm].tocsr()
+    Ap.sum_duplicates()
+    plan = plan_band_hierarchy(Ap, hbm)
+    _check_plan(plan)
+    bsize = plan["bsize"]
+    session.bt = None
+    with profiling.phase("band setup"):
+        session.band_amg, session.band_layout = band_mod.setup_fine_band(
+            Ap, device=dev)
+        if session.band_data_map is None:
+            session.band_data_map = _csr_perm_map(At, Ap, perm, iperm)
+        session.first_iters = None
+    with profiling.phase("bt factor"):
+        lay = bt_mod.pack_layout(Ap, bsize)
+        # large f32 factors build CHUNKED from the host layout (bounded
+        # fill transient); small ones take the fused fill + factor
+        if bt_mod.factor_bytes(n, bsize) > 2e9:
+            session.bt_maps = lay
+        else:
+            session.bt_maps = bt_mod.device_maps(lay, dev)
+        session.bt_shape = (bsize, lay.NB)
+        session.bt = bt_mod.bt_build(session.bt_maps, Ap.data, b=bsize,
+                                     NB=lay.NB, device=dev)
+
+
+def _refresh_band(session: Session, At, refactor: bool, dev) -> None:
+    """Value-only fine band update (and, when stale, a refactor)."""
+    from ..utils import profiling
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    Ap_data = _permuted_data(At, session.band_data_map)
+    with profiling.phase("band update"):
+        if session.band_flat_idx is None:
+            session.band_flat_idx = band_mod.fine_slot_index(
+                session.band_layout, dev)
+        band_mod.update_fine_values(session.band_amg, session.band_layout,
+                                    Ap_data, session.band_flat_idx)
+    if refactor:
+        with profiling.phase("bt refactor"):
+            bsize, NB = session.bt_shape
+            session.bt = bt_mod.bt_build(session.bt_maps, Ap_data, b=bsize,
+                                         NB=NB, device=dev)
+        session.first_iters = None
+
+
+def _prepare_band(session: Session, At, fixed, coords, n: int, dev,
+                  hbm: float) -> None:
+    """Adopt, refresh or (re)build the band engine state for ``At``."""
+    from ..utils import profiling
+
+    ckey = None
+    if session.band_amg is None:
+        ckey = _band_cache_key(At, fixed, dev)
+        session.band_ckey = ckey
+        cached = _BAND_CACHE.get(ckey)
+        if cached is not None:
+            _BAND_CACHE.move_to_end(ckey)
+            for k in _CACHED:
+                setattr(session, k, cached[k])
+            session.first_iters = None
+    if session.perm is None:
+        with profiling.phase("ordering"):
+            perm = pick_band_order(
+                At, coords if np.shape(coords)[0] == n else None, hbm)
+        iperm = np.empty_like(perm)
+        iperm[perm] = np.arange(n)
+        session.perm = (perm, iperm)
+    band_stale = (session.band_amg is not None
+                  and session.first_iters is not None
+                  and session.last_iters is not None
+                  and session.last_iters
+                  > session.refresh_factor * max(session.first_iters, 1))
+    if session.band_amg is None:
+        _build_band(session, At, n, dev, hbm)
+        if ckey is None:
+            ckey = _band_cache_key(At, fixed, dev)
+        session.band_ckey = ckey
+        _BAND_CACHE[ckey] = {k: getattr(session, k) for k in _CACHED}
+        _BAND_CACHE.move_to_end(ckey)
+        while len(_BAND_CACHE) > _BAND_CACHE_MAX:
+            _BAND_CACHE.popitem(last=False)
+    else:
+        # staleness with the block-tridiagonal factor: only the FACTOR is
+        # stale (the fine operator refreshes exactly every call)
+        _refresh_band(session, At, band_stale, dev)
+        entry = _BAND_CACHE.get(session.band_ckey)
+        if entry is not None:
+            entry["bt"] = session.bt
+            entry["band_flat_idx"] = session.band_flat_idx
+
+
+def solve(blocks, b, fixed_mask, fixed_vals, tol,
+          x0=None, max_iter: int = 200000,
+          inner_tol: float | None = None, inner_iter: int = 20000,
+          coords=None, session: "Session | None" = None, changed=None,
+          device=None, hbm: float | None = None):
+    """Solve the assembled system with Dirichlet values via projection.
+
+    Periodic/antiperiodic folds are already encoded in the blocks'
+    index/sign maps; fixed DOFs carry ``fixed_vals`` exactly. The true
+    residual and the reference stopping metric are evaluated on host in
+    f64 from a CSR of the blocks; ``device`` (CUDA by default) runs the
+    f32 band CG correction solves, and the host restarts from the exact
+    residual until the metric meets ``tol``. ``hbm`` is the device
+    memory the band planner plans against (read from the card when
+    omitted on CUDA; required on other devices). Returns
+    (x, relative_residual, iterations)."""
+    from ..utils import profiling
+    from . import blocktri as bt_mod
+
+    dev = resolve_device(device)
+    blocks = tuple(blocks)
+    n = int(np.asarray(b).shape[0])
+    fixed = np.asarray(fixed_mask, bool)
+    fvals = np.asarray(fixed_vals, np.float64)
+    b64 = np.asarray(b, np.float64)
+    if coords is None or n <= 4 * ROW_TILE_MIN:
+        raise NotImplementedError(f"a linear solve of n={n} unknowns "
+                                  + LATER_SMALL)
+    hbm_b = device_hbm_bytes(dev, hbm)
+    if inner_tol is None:
+        inner_tol = max(tol, 1e-5)
+
+    if session is None:
+        session = Session()
+    with profiling.phase("host csr assembly"):
+        At = session.csr_values(blocks, n, fixed, changed=changed)
+    diag64 = np.asarray(At.diagonal())
+
+    # rhs with Dirichlet elimination: fixed rows become identity rows;
+    # b - A g needs the UNELIMINATED couplings to the fixed values
+    g = np.where(fixed, fvals, 0.0)
+    Ag = np.zeros(n)
+    if bool(fixed.any()) and bool(np.any(fvals[fixed] != 0.0)):
+        for blk_ in blocks:
+            idx = np.asarray(blk_.idx)
+            sgn = np.asarray(blk_.sign, np.float64)
+            mat = np.asarray(blk_.mat, np.float64)
+            ye = np.einsum("ekl,el->ek", mat, sgn * g[idx])
+            np.add.at(Ag, idx.reshape(-1), (sgn * ye).reshape(-1))
+    rhs = np.where(fixed, fvals, b64 - Ag)
+    invd = 1.0 / diag64
+    res0 = float(np.dot(invd * rhs, rhs))
+    if res0 == 0.0:
+        res0 = 1.0
+    x = g.copy() if x0 is None else np.where(fixed, fvals,
+                                             np.asarray(x0, np.float64))
+
+    _prepare_band(session, At, fixed, coords, n, dev, hbm_b)
+    perm, iperm = session.perm
+    lv0 = session.band_amg.levels[0]
+    dense = lv0.A.dense
+    bbytes = dense.numel() * dense.element_size()
+    band_iter = min(int(inner_iter), 2500,
+                    max(96, int(PASS_STREAM_BYTES / (4.0 * bbytes))))
+
+    total_it = 0
+    metric = np.inf
+    best = (x, np.inf)
+    for _ in range(60):
+        r = rhs - At @ x
+        metric = float(np.sqrt(abs(np.dot(invd * r, r)) / res0))
+        if metric < best[1]:
+            best = (x.copy(), metric)
+        if metric <= tol or total_it >= max_iter:
+            break
+        scale = np.abs(r).max()
+        if scale == 0.0:
+            break
+        r_d = torch.as_tensor((r / scale)[perm], dtype=torch.float32,
+                              device=dev)
+        # this pass only needs to contract the CURRENT host metric down
+        # to tol; 1e-6 is the reliable single-pass f32 contraction
+        tol_pass = min(0.5, max(0.5 * tol / min(metric, 1.0), 1e-6))
+        with profiling.phase("device cg"):
+            d_d, _rr, it = bt_mod.bt_pcg(
+                lv0.A, None, lv0.invd, session.bt, r_d, tol_pass,
+                torch.zeros(n, dtype=torch.float32, device=dev), band_iter)
+            d_h = d_d.double().cpu().numpy()
+        total_it += it
+        if session.first_iters is None:
+            session.first_iters = it
+        session.last_iters = it
+        x = x + scale * d_h[iperm]
+        new_r = rhs - At @ x
+        new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r)) / res0))
+        if new_metric >= metric * 0.9:
+            if new_metric < best[1]:
+                best = (x.copy(), new_metric)
+            if new_metric > max(100.0 * tol, 1e-4):
+                raise NotImplementedError(
+                    f"the band CG stopped contracting (metric "
+                    f"{new_metric:.3e}); dropping the factor for the "
+                    f"V-cycle or latching the band engine off "
+                    + LATER_1M)
+            break
+    x, metric = best if best[1] < metric else (x, metric)
+    return x, metric, total_it
