@@ -177,3 +177,30 @@ def test_setup_fine_band_matches_jax_fine_level():
     assert (got.A.shift0, got.A.cchunk, got.A.ncols) == \
         (ref.A.shift0, ref.A.cchunk, ref.A.ncols)
     assert torch.equal(got.invd, ref.invd)
+
+
+def test_chunked_pcg_ends_at_its_floor():
+    """A pass whose recurrence drifts from a true residual that stops
+    improving ends there (the host's f64 restart goes on from the exact
+    residual) instead of restarting every check until its cap. The
+    operator here is A plus a fresh perturbation of 1e-4 relative per
+    call: the true residual of any iterate floors near 1e-4."""
+    m = 30
+    T = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (m, m))
+    A = (sp.kron(sp.eye(m), T) + sp.kron(T, sp.eye(m))
+         + 1e-3 * sp.eye(m * m)).tocsr()
+    n = A.shape[0]
+    tA = convert.band_matrix(jband.fill_band_device(
+        jband.pack_band_layout(A, 128, 128), A.data, 128))
+    invd = torch.as_tensor((1.0 / A.diagonal()).astype(np.float32))
+    gen = torch.Generator().manual_seed(0)
+
+    def noisy_op(v):
+        y = tband.band_apply(tA, None, v)
+        return y + 1e-4 * y.abs().max() * torch.randn(n, generator=gen)
+
+    rhs = torch.as_tensor((A @ np.ones(n)).astype(np.float32))
+    _x, rel, it = tband._chunked_pcg(noisy_op, lambda r: invd * r, invd,
+                                     rhs, 1e-9, torch.zeros(n), 2000, 2000)
+    assert it < 500, it          # ended at the floor, far from the cap
+    assert rel < 1e-2

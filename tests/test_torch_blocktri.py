@@ -14,6 +14,7 @@ from xfemm_tpu.ops import band as jband
 from xfemm_tpu.ops import blocktri as jbt
 from xfemm_tpu.ops import pallas_band
 from xfemm_tpu_torch import convert
+from xfemm_tpu_torch.ops import band as tband
 from xfemm_tpu_torch.ops import blocktri as tbt
 
 
@@ -153,3 +154,57 @@ def test_bt_pcg_matches_jax():
     err = np.abs(tx.numpy() - x_true).max() / np.abs(x_true).max()
     assert err < 1e-4
     assert _rel(tx.numpy(), np.asarray(jx)) < 1e-5
+
+
+@pytest.mark.parametrize("build", ["fused", "chunked"])
+def test_bf16_store_matches_jax(build):
+    """The bf16 factor store of a BTSmoother: the fused and the chunked
+    build give the JAX package's fused bf16 factor (f32 recurrence,
+    blocks rounded to bf16 on store), within one bf16 rounding."""
+    A = _banded_spd(900, 100, seed=11)
+    lay = jbt.pack_layout(A, 128)
+    fj = jbt.build_factor(jbt.device_maps(lay), A.data, b=128, NB=lay.NB,
+                          store_dtype=jnp.bfloat16)
+    lt = tbt.pack_layout(A, 128)
+    if build == "fused":
+        ft = tbt.bt_build(tbt.device_maps(lt), A.data, b=128, NB=lt.NB,
+                          store_dtype=torch.bfloat16)
+    else:
+        ft = tbt.build_factor_chunked(lt, A.data, store_dtype=torch.bfloat16,
+                                      chunk=3)
+    for a, b in zip(ft[:2], fj[:2]):
+        assert a.dtype == torch.bfloat16
+        assert tuple(a.shape) == tuple(b.shape)
+        assert _rel(a.float().numpy(), np.asarray(b, np.float32)) < 1e-2
+    r = np.random.default_rng(2).standard_normal(A.shape[0]) \
+        .astype(np.float32)
+    zj = np.asarray(jbt.bt_apply(jbt.BTSmoother(*fj), jnp.asarray(r)))
+    zt = tbt.bt_apply(tbt.BTSmoother(*ft), torch.as_tensor(r)).numpy()
+    assert _rel(zt, zj) < 3e-2
+
+
+def test_bt_pcg_with_sidecar_matches_jax():
+    """bt_pcg's operator carries the sidecar (``oob``) of a split level
+    while the factor covers only the kept band."""
+    import test_torch_band_sym
+    A = test_torch_band_sym._banded_spd_with_outliers()
+    n = A.shape[0]
+    jamg, jlay = jband.setup_band_amg(A)
+    tamg, _tlay = tband.setup_band_amg(A)
+    jlv, tlv = jamg.levels[0], tamg.levels[0]
+    assert jlv.oob is not None and tlv.oob is not None
+    keep = np.zeros(A.nnz, bool)
+    keep[jlay.keep_sel] = True
+    Ak, _ = jband._split_csr(A, keep)
+    lay = jbt.pack_layout(Ak, jbt.pick_block(jbt.bandwidth(Ak)))
+    fj = jbt.build_factor(jbt.device_maps(lay), Ak.data, b=lay.b, NB=lay.NB)
+    rhs = (A @ np.random.default_rng(3).normal(size=n)).astype(np.float32)
+    jx, jrel, jit = jbt.bt_pcg(jlv.A, jlv.dvec, jlv.invd, fj,
+                               jnp.asarray(rhs), jnp.float32(1e-6),
+                               jnp.zeros(n, jnp.float32), 200, oob=jlv.oob)
+    tx, trel, tit = tbt.bt_pcg(tlv.A, tlv.dvec, tlv.invd,
+                               convert.bt_factor(fj), torch.as_tensor(rhs),
+                               1e-6, torch.zeros(n), 200, oob=tlv.oob)
+    assert trel <= 2e-6 and float(jrel) <= 2e-6
+    assert abs(tit - int(jit)) <= max(2, int(jit) // 10), (tit, jit)
+    assert _rel(tx.numpy(), np.asarray(jx)) < 1e-4

@@ -39,3 +39,24 @@ def test_no_import_statement_names_jax():
     files.append(ROOT / "chip_smoke.py")
     hits = [str(f) for f in files if pat.search(f.read_text())]
     assert hits == []
+
+
+def test_slice2_modules_stand_alone():
+    """The host AMG helpers (``ops.amg``, the port's own copy) and the
+    fused symmetric kernel's binding (``kernels.band_sym``, source
+    ``ops/csrc/band_sym.cu``) import without jax or the JAX package."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(ROOT)!r})
+from xfemm_tpu_torch.ops import amg, kernels
+assert kernels.SOURCES["band_sym"] == "band_sym.cu"
+assert "band_sym" in kernels.LAUNCHES
+assert callable(kernels.band_sym) and callable(amg.scaled_inv)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "xfemm_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]", out
+    assert (ROOT / "xfemm_tpu_torch" / "ops" / "csrc" / "band_sym.cu") \
+        .is_file()

@@ -51,6 +51,36 @@ class BTFactor(NamedTuple):
     s: torch.Tensor
 
 
+class BTSmoother(NamedTuple):
+    """A block-tridiagonal factor in the SMOOTHER role: the same fields
+    as BTFactor (``bt_apply`` takes either), but the distinct type tells
+    the solve to compose it with the band-AMG coarse correction (the
+    V-cycle's level-0 smoother, band.band_vcycle) instead of using it as
+    the standalone CG preconditioner. It factors only the KEPT in-part
+    band of a partitioned ordering."""
+    Sinv: torch.Tensor
+    G: torch.Tensor
+    s: torch.Tensor
+
+
+class BTCoarse(NamedTuple):
+    """A block-tridiagonal factor serving as the (near-)exact bottom
+    solve of a two-grid band hierarchy, with the ordering in which it
+    was factored (``perm``/``iperm`` None: hierarchy order). ``n`` is
+    the coarse dimension."""
+    factor: BTFactor
+    n: int
+    perm: "torch.Tensor | None" = None
+    iperm: "torch.Tensor | None" = None
+
+
+def bt_coarse_apply(btc: BTCoarse, rc: torch.Tensor) -> torch.Tensor:
+    """Near-exact coarse solve in hierarchy ordering."""
+    rcp = rc if btc.perm is None else rc[btc.perm]
+    z = bt_apply(btc.factor, rcp)
+    return z if btc.iperm is None else z[btc.iperm]
+
+
 class BTLayout(NamedTuple):
     """Host scatter maps from permuted-CSR entry order into the D/L
     block buffers (value-only refreshes reuse them)."""
@@ -161,22 +191,19 @@ def device_maps(lay: BTLayout, device="cpu") -> BTDeviceMaps:
 
 
 def _thomas(Sprev: torch.Tensor, D: torch.Tensor, L: torch.Tensor,
-            store: torch.dtype):
+            Sinv: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """The factorization recurrence over len(D) steps from the Schur
-    carry ``Sprev``: returns (last carry, Sinv blocks, G blocks)."""
-    m = D.shape[0]
-    b = Sprev.shape[0]
-    Sinv = torch.empty((m, b, b), dtype=store, device=D.device)
-    G = torch.empty((m, b, b), dtype=store, device=D.device)
+    carry ``Sprev``, writing the Sinv and G blocks (in their storage
+    dtype) into the given slices; returns the last carry."""
     S = Sprev
     with kernels.fp32_matmul():
-        for i in range(m):
+        for i in range(D.shape[0]):
             Si = torch.linalg.inv(S)
             Gi = L[i] @ Si
             S = D[i] - Gi @ L[i].T
-            Sinv[i] = Si.to(store)
-            G[i] = Gi.to(store)
-    return S, Sinv, G
+            Sinv[i] = Si.to(Sinv.dtype)
+            G[i] = Gi.to(G.dtype)
+    return S
 
 
 def _fill_and_factor(maps: BTDeviceMaps, data: torch.Tensor, b: int,
@@ -209,10 +236,11 @@ def _fill_and_factor(maps: BTDeviceMaps, data: torch.Tensor, b: int,
     L.index_put_((maps.l_flat,), lvals, accumulate=True)
     L = L.view(max(NB - 1, 1), b, b)
 
-    Slast, Sinv, G = _thomas(D[0], D[1:], L[:NB - 1], store_dtype)
+    Sinv = torch.empty((NB, b, b), dtype=store_dtype, device=dev)
+    G = torch.empty((NB - 1, b, b), dtype=store_dtype, device=dev)
+    Slast = _thomas(D[0], D[1:], L[:NB - 1], Sinv, G)
     with kernels.fp32_matmul():
-        Sinv_last = torch.linalg.inv(Slast)
-    Sinv = torch.cat([Sinv, Sinv_last[None].to(store_dtype)], 0)
+        Sinv[NB - 1] = torch.linalg.inv(Slast).to(store_dtype)
     return BTFactor(Sinv=Sinv, G=G, s=s)
 
 
@@ -245,11 +273,12 @@ def build_factor_chunked(lay: BTLayout, data_p: np.ndarray,
                          device="cpu") -> BTFactor:
     """Block-Thomas factor built in CHUNKS of blocks: the fused
     ``_fill_and_factor`` materializes the full (D, L) buffers next to
-    the (Sinv, G) outputs, a 2x-factor-bytes transient. Here the host
-    drives ceil(NB/chunk) fill + factor rounds threading the b x b Schur
-    carry, so the transient is one chunk (2 * chunk * b^2 f32) whatever
-    NB is. The recurrence and its fp32 products are unchanged; the
-    Jacobi scaling is computed on host in f64."""
+    the (Sinv, G) outputs, a 2x-factor-bytes f32 transient. Here the
+    host drives ceil(NB/chunk) fill + factor rounds threading the b x b
+    Schur carry into preallocated outputs, so the transient is one chunk
+    (2 * chunk * b^2 f32) whatever NB is. The recurrence and its fp32
+    products are unchanged; the Jacobi scaling is computed on host in
+    f64."""
     b, NB, n = lay.b, lay.NB, lay.n
     if chunk is None:
         chunk = max(8, int(1e9 // (b * b * 8)))
@@ -277,8 +306,8 @@ def build_factor_chunked(lay: BTLayout, data_p: np.ndarray,
                          ploc[pblk == 0] * b + ploc[pblk == 0],
                          nb=1, b=b, device=device)
     carry = D0[0]
-    sinv_parts = []
-    g_parts = []
+    Sinv = torch.empty((NB, b, b), dtype=store_dtype, device=device)
+    G = torch.empty((NB - 1, b, b), dtype=store_dtype, device=device)
     s0 = 1
     while s0 < NB:
         s1 = min(s0 + chunk, NB)
@@ -292,16 +321,11 @@ def build_factor_chunked(lay: BTLayout, data_p: np.ndarray,
         D, L = _fill_blocks(vals[dm], dflat, vals[lm], lflat,
                             np.ones(int(pm.sum()), np.float32), pflat,
                             nb=nb, b=b, device=device)
-        carry, Sinv_c, G_c = _thomas(carry, D, L, store_dtype)
+        carry = _thomas(carry, D, L, Sinv[s0 - 1:s1 - 1], G[s0 - 1:s1 - 1])
         del D, L
-        sinv_parts.append(Sinv_c)
-        g_parts.append(G_c)
         s0 = s1
     with kernels.fp32_matmul():
-        Sinv_last = torch.linalg.inv(carry).to(store_dtype)
-    Sinv = torch.cat(sinv_parts + [Sinv_last[None]], 0)
-    G = torch.cat(g_parts, 0) if g_parts else \
-        torch.zeros((0, b, b), dtype=store_dtype, device=device)
+        Sinv[NB - 1] = torch.linalg.inv(carry).to(store_dtype)
     return BTFactor(Sinv=Sinv, G=G,
                     s=torch.as_tensor(s_host, device=device))
 

@@ -1,13 +1,14 @@
 """Hand-written Hopper kernels of the band engine, and their plain
 PyTorch versions.
 
-Four CUDA kernels carry every CG iteration of the band + block-
-tridiagonal engine (``ops/csrc``):
+Five CUDA kernels carry every CG iteration of the band engine
+(``ops/csrc``):
 
 =========  ==========================  =====================================
 wrapper    source                      replaces (TPU kernel of the JAX package)
 =========  ==========================  =====================================
 band_mv    csrc/band_mv.cu             pallas_band.py::_band_mv_call
+band_sym   csrc/band_sym.cu            pallas_band.py::_band_sym_call
 bt_fwd     csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas fwd_kernel
 bt_q       csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas q_kernel
 bt_bwd     csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas bwd_kernel
@@ -23,7 +24,7 @@ A wrapper given CPU tensors runs the plain version (the CPU tests and
 the CPU solve path); given CUDA tensors it launches its kernel or
 raises -- it never falls back. ``LAUNCHES`` counts the wrapper calls
 that launched a kernel (a sweep call enqueues NB-1 step grids and counts
-once).
+once; band_sym's two passes count once).
 """
 
 from __future__ import annotations
@@ -41,13 +42,15 @@ import torch
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
-SOURCES = {"band_mv": "band_mv.cu", "bt_sweep": "bt_sweep.cu"}
+SOURCES = {"band_mv": "band_mv.cu", "band_sym": "band_sym.cu",
+           "bt_sweep": "bt_sweep.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: kernel launches through the wrappers, by kernel name
-LAUNCHES = {"band_mv": 0, "bt_fwd": 0, "bt_q": 0, "bt_bwd": 0}
+LAUNCHES = {"band_mv": 0, "band_sym": 0, "bt_fwd": 0, "bt_q": 0,
+            "bt_bwd": 0}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -112,6 +115,8 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGS = {
     "band_mv": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR],
+    "band_sym": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
+                 _INT, _INT, _PTR],
     "bt_fwd": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
     "bt_q": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
     "bt_bwd": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
@@ -221,6 +226,80 @@ def band_mv(dense: torch.Tensor, x: torch.Tensor, shift0: int, cchunk: int,
             shift0, ncols, _stream(x))
     _raise_on(rc, "band_mv")
     LAUNCHES["band_mv"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------- #
+# K5: fused symmetric (triu) band apply                                  #
+# ---------------------------------------------------------------------- #
+
+def band_rmatvec_plain(dense: torch.Tensor, y: torch.Tensor, shift0: int,
+                       cchunk: int, ncols: int) -> torch.Tensor:
+    """x (ncols,) = A^T y from the SAME (NT, R, W) band as K1 (the JAX
+    package's ``band.band_rmatvec``, band.py:137): one batched
+    contraction gives each tile's (W,) column sums, then K static
+    shifted adds place the overlapping window slices. y is rounded to
+    the band's storage dtype first."""
+    NT, R, W = dense.shape
+    K = W // cchunk
+    n = min(y.shape[0], NT * R)
+    yt = torch.zeros(NT * R, dtype=torch.float32, device=y.device)
+    yt[:n] = y[:n].to(dense.dtype).float()
+    with fp32_matmul():
+        contrib = torch.bmm(yt.view(NT, 1, R), dense.float())[:, 0, :]
+    contrib = contrib.view(NT, K, cchunk)
+    lpad = max(0, -shift0) * cchunk
+    total = (NT + max(0, shift0) + K) * cchunk + lpad
+    z = torch.zeros((total // cchunk, cchunk), dtype=torch.float32,
+                    device=y.device)
+    base = shift0 + lpad // cchunk
+    for s in range(K):
+        z[base + s: base + s + NT] += contrib[:, s]
+    return z.view(-1)[lpad:lpad + ncols]
+
+
+def band_sym_plain(dense: torch.Tensor, dvec: torch.Tensor, x: torch.Tensor,
+                   shift0: int, cchunk: int, ncols: int) -> torch.Tensor:
+    """Plain version of K5: the JAX package's XLA two-pass
+    ``band_matvec + band_rmatvec - dvec * x`` (band.py:528) over the
+    triu band; returns the (ncols,) product."""
+    xf = x[:ncols].float()
+    return (band_mv_plain(dense, xf, shift0, cchunk, ncols)[:ncols]
+            + band_rmatvec_plain(dense, xf, shift0, cchunk, ncols)
+            - dvec[:ncols] * xf)
+
+
+#: window columns one K5 block streams (csrc/band_sym.cu TW)
+_SYM_SLICE = 512
+
+
+def band_sym(dense: torch.Tensor, dvec: torch.Tensor, x: torch.Tensor,
+             shift0: int, cchunk: int, ncols: int) -> torch.Tensor:
+    """y (ncols,) = U x + U^T x - dvec * x for a square level stored as
+    its upper triangle U in the (NT, R, W) band, in one stream of the
+    band (K5); fp32 accumulation for f32 and bf16 bands."""
+    if not x.is_cuda:
+        return band_sym_plain(dense, dvec, x, shift0, cchunk, ncols)
+    NT, R, W = dense.shape
+    if x.dtype != torch.float32 or dvec.dtype != torch.float32:
+        raise ValueError("band_sym: x and dvec must be float32")
+    if x.numel() < ncols or dvec.numel() < ncols or ncols > NT * R:
+        raise ValueError("band_sym: x and dvec need ncols <= NT*R entries")
+    if W % cchunk != 0:
+        raise ValueError("band_sym: W must be a multiple of cchunk")
+    _check("band_sym", dense, dvec, x)
+    slices = -(-W // _SYM_SLICE)
+    y = torch.empty(ncols, dtype=torch.float32, device=x.device)
+    rowpart = torch.empty(slices * NT * R, dtype=torch.float32,
+                          device=x.device)
+    colpart = torch.empty(NT * W, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = _fn("band_sym", "band_sym", dense.dtype)(
+            dense.data_ptr(), dvec.data_ptr(), x.data_ptr(), y.data_ptr(),
+            rowpart.data_ptr(), colpart.data_ptr(), NT, R, W, cchunk, shift0,
+            ncols, _stream(x))
+    _raise_on(rc, "band_sym")
+    LAUNCHES["band_sym"] += 1
     return y
 
 
