@@ -9,12 +9,14 @@ Phases (any failure exits non-zero, with no result line):
    (one nvcc per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the band matvec (K1) at (1949, 128, 2176) in f32
-   and bf16 and an R=512 band, the block-Thomas apply (K2-K4) at b=1024,
-   NB=244, at b=2048 and in bf16 at b=896 (each sweep also step by
-   step), the fused symmetric apply (K5) at the 4.47M fine level's
-   (34909, 128, 1024) in f32, a bf16 band, and an R=256 band with a
-   positive shift0; print errors and median times (``--kernels-only``
-   stops here);
+   and bf16 and an R=512 band, the block-Thomas apply (the forward sweep
+   K2 and the fused Sinv product + backward sweep bt_qbwd) at b=1024,
+   NB=244, at b=2048 (a ring of chunks), in bf16 at b=896 and b=256, and
+   at NB=1 and 2 (each sweep also step by step, bt_qbwd twice for
+   bitwise determinism), the fused symmetric apply (K5) at the 4.47M
+   fine level's (34909, 128, 1024) in f32, a bf16 band, and an R=256
+   band with a positive shift0; print errors, median times and
+   bt_qbwd's launch plan (``--kernels-only`` stops here);
 3. the 250k path (slice 1): ``benchprob.build(250_000)``, the port's
    mesher (npz cache under .bench_cache/), ``magnetostatics.solve`` cold
    and warm on the card, counting the kernels' launches; check the
@@ -32,7 +34,8 @@ Phases (any failure exits non-zero, with no result line):
    counts; hold every kernel against its plain version on the live
    hierarchy and smoother (each level's K5 or K1 band, bf16 copy and
    prolongator; the sweeps step by step and chained); time K5 on the
-   live fine band and the live smoother's sweeps, profile a few CG
+   live fine band and the live smoother's fwd and bt_qbwd (with
+   bt_qbwd's clock cycles per phase of a step), profile a few CG
    iterations; then the V-cycle on a small problem (Temp.fem at a
    1.5e8-byte plan, triu storage forced for this check only), card
    against CPU, cold and again, with its CG iterations bounded;
@@ -68,15 +71,14 @@ REPLACES = {
     "band_mv": "xfemm_tpu/ops/pallas_band.py:70",
     "band_sym": "xfemm_tpu/ops/pallas_band.py:115",
     "bt_fwd": "xfemm_tpu/ops/blocktri.py:410",
-    "bt_q": "xfemm_tpu/ops/blocktri.py:448",
-    "bt_bwd": "xfemm_tpu/ops/blocktri.py:472",
+    "bt_qbwd": "xfemm_tpu/ops/blocktri.py:448 (q_kernel) and "
+               "xfemm_tpu/ops/blocktri.py:472 (bwd_kernel)",
 }
 SOURCES = {
     "band_mv": "xfemm_tpu_torch/ops/csrc/band_mv.cu",
     "band_sym": "xfemm_tpu_torch/ops/csrc/band_sym.cu",
     "bt_fwd": "xfemm_tpu_torch/ops/csrc/bt_sweep.cu",
-    "bt_q": "xfemm_tpu_torch/ops/csrc/bt_sweep.cu",
-    "bt_bwd": "xfemm_tpu_torch/ops/csrc/bt_sweep.cu",
+    "bt_qbwd": "xfemm_tpu_torch/ops/csrc/bt_qbwd.cu",
 }
 
 
@@ -183,8 +185,8 @@ def bt_apply_plain(kernels, bt, r):
     rs = torch.zeros(NB * b, device=r.device)
     rs[:n] = bt.s[:n] * r
     rs = rs.view(NB, b)
-    z = kernels.bt_bwd_plain(bt.G, kernels.bt_q_plain(
-        bt.Sinv, kernels.bt_fwd_plain(bt.G, rs)))
+    z = kernels.bt_qbwd_plain(bt.Sinv, bt.G,
+                              kernels.bt_fwd_plain(bt.G, rs))
     return bt.s[:n] * z.view(-1)[:n]
 
 
@@ -199,31 +201,65 @@ TOL = 1e-5
 BF16_CHAIN_TOL = 3e-2
 
 
+def describe_qbwd_plan(kernels, torch, b: int, dtype) -> str:
+    """bt_qbwd's launch on this card: grid, residency, ring."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = kernels._qbwd_plan(b, dtype, n_sm)
+    per_sm = kernels.qbwd_blocks_per_sm(b, dtype, p.smem_bytes)
+    return (f"grid {p.blocks} blocks ({per_sm} resident per SM x {n_sm} "
+            f"SMs), {p.rows} rows per block, ring of {p.stages} stages x "
+            f"{p.stage_rows} rows ({p.chunks} chunk(s) per matrix and "
+            f"step), {p.smem_bytes} B shared memory")
+
+
+def qbwd_breakdown(kernels, torch, bt, ys) -> str:
+    """Where a step of bt_qbwd goes: one traced call on (bt, ys), the
+    mean clock cycles between its trace points over the steps that have
+    them all (NB-2 .. 1), in the first and the last block."""
+    NB = ys.shape[0]
+    if NB < 4:
+        return "too few steps to trace"
+    tr = torch.zeros((2, NB, 8), dtype=torch.int64, device="cuda")
+    kernels.bt_qbwd(bt.Sinv, bt.G, ys, trace=tr)
+    tr = tr[:, 1:NB - 1].double().cpu()
+    names = kernels.QBWD_TRACE_POINTS
+    out = []
+    for blk, label in ((0, "first"), (1, "last")):
+        t = tr[blk]
+        step = float((t[1:, 0] - t[:-1, 0]).mean())
+        parts = [f"{names[i + 1]} {float((t[:, i + 1] - t[:, i]).mean()):.0f}"
+                 for i in range(7)]
+        parts.append(f"to next step {float((t[1:, 0] - t[:-1, 7]).mean()):.0f}")
+        out.append(f"{label} block {step:.0f} cycles per step: "
+                   + ", ".join(parts))
+    return "; ".join(out)
+
+
 def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
                  chunk: int = 256) -> dict:
-    """K2-K4 on factor ``bt`` against their plain versions. Each sweep is
-    held STEP BY STEP at TOL: the plain step applied to the kernel's own
-    previous output, which both sides round to the factor's storage type
-    alike. The chained sweeps are held at ``chain_tol``. Returns the
-    step errors by kernel."""
+    """bt_fwd and bt_qbwd on factor ``bt`` against their plain versions.
+    Each is held STEP BY STEP at TOL: the plain step applied to the
+    kernel's own neighbouring output (y_{t-1} for fwd, z_{t+1} for
+    bt_qbwd), which both sides round to the factor's storage type alike.
+    The chained sweeps are held at ``chain_tol``, and two bt_qbwd calls
+    on the same inputs must agree bit for bit. Returns the step errors
+    by kernel."""
     NB, b, _ = bt.Sinv.shape
     G, Sinv = bt.G, bt.Sinv
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(G, rs)
-    qs = kernels.bt_q(Sinv, ys)
-    zs = kernels.bt_bwd(G, qs)
+    zs = kernels.bt_qbwd(Sinv, G, ys)
+    same = torch.equal(zs, kernels.bt_qbwd(Sinv, G, ys))
 
     def rnd(v):
         return kernels._as_factor_dtype(v, G.dtype)
 
-    step = {"bt_fwd": float((ys[0] - rs[0]).abs().max()), "bt_q": 0.0,
-            "bt_bwd": float((zs[NB - 1] - qs[NB - 1]).abs().max())}
+    step = {"bt_fwd": float((ys[0] - rs[0]).abs().max()), "bt_qbwd": 0.0}
+    qs = torch.empty_like(ys)       # the plain Sinv products, in chunks
     with kernels.fp32_matmul():
         for t0 in range(0, NB, chunk):
             t1 = min(t0 + chunk, NB)
-            q_ref = kernels.bt_q_plain(Sinv[t0:t1], ys[t0:t1])
-            step["bt_q"] = max(step["bt_q"],
-                               float((qs[t0:t1] - q_ref).abs().max()))
+            qs[t0:t1] = kernels.bt_q_plain(Sinv[t0:t1], ys[t0:t1])
             a = max(t0, 1)
             if a < t1:
                 f_ref = rs[a:t1] - torch.bmm(
@@ -236,29 +272,33 @@ def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
                 b_ref = qs[t0:e] - torch.bmm(
                     G[t0:e].float().transpose(1, 2),
                     rnd(zs[t0 + 1:e + 1])[:, :, None])[:, :, 0]
-                step["bt_bwd"] = max(step["bt_bwd"],
-                                     float((zs[t0:e] - b_ref).abs().max()))
-    for name, out in (("bt_fwd", ys), ("bt_q", qs), ("bt_bwd", zs)):
+                step["bt_qbwd"] = max(step["bt_qbwd"],
+                                      float((zs[t0:e] - b_ref).abs().max()))
+    step["bt_qbwd"] = max(step["bt_qbwd"],
+                          float((zs[NB - 1] - qs[NB - 1]).abs().max()))
+    for name, out in (("bt_fwd", ys), ("bt_qbwd", zs)):
         step[name] /= float(out.abs().max())
     chain = {"bt_fwd": rel_err(ys, kernels.bt_fwd_plain(G, rs)),
-             "bt_bwd": rel_err(zs, kernels.bt_bwd_plain(G, qs))}
-    print(f"K2-K4 {label} b={b} NB={NB} {str(G.dtype)[6:]}: per-step max "
-          f"rel err fwd {step['bt_fwd']:.3e}, q {step['bt_q']:.3e}, bwd "
-          f"{step['bt_bwd']:.3e} (tol {TOL:g}); chained fwd "
-          f"{chain['bt_fwd']:.3e}, bwd {chain['bt_bwd']:.3e} (tol "
-          f"{chain_tol:g})", flush=True)
+             "bt_qbwd": rel_err(zs, kernels.bt_bwd_plain(G, qs))}
+    print(f"K2 + bt_qbwd {label} b={b} NB={NB} {str(G.dtype)[6:]}: per-step "
+          f"max rel err fwd {step['bt_fwd']:.3e}, qbwd {step['bt_qbwd']:.3e} "
+          f"(tol {TOL:g}); chained fwd {chain['bt_fwd']:.3e}, qbwd "
+          f"{chain['bt_qbwd']:.3e} (tol {chain_tol:g}); two bt_qbwd calls "
+          f"bitwise equal: {same}", flush=True)
     if not max(step.values()) <= TOL:
         fail(f"a sweep kernel disagrees with its plain step on {label}")
     if not max(chain.values()) <= chain_tol:
         fail(f"a chained sweep disagrees with its plain version on {label}")
+    if not same:
+        fail(f"bt_qbwd gave two results on the same inputs on {label}")
     return step
 
 
 def check_bt_apply(kernels, blocktri, torch, gen, NB, b, tol,
                    dtype=None):
+    dtype = dtype or torch.float32
     bt = random_factor(torch, gen, NB, b)
-    if dtype is not None:
-        bt = bt._replace(Sinv=bt.Sinv.to(dtype), G=bt.G.to(dtype))
+    bt = bt._replace(Sinv=bt.Sinv.to(dtype), G=bt.G.to(dtype))
     n = NB * b - 37
     r = torch.randn(n, generator=gen, device="cuda")
     z = blocktri.bt_apply(bt, r)
@@ -268,14 +308,12 @@ def check_bt_apply(kernels, blocktri, torch, gen, NB, b, tol,
     rs = (bt.s[:n] * r)
     rs = torch.nn.functional.pad(rs, (0, 37)).view(NB, b)
     ys = kernels.bt_fwd(bt.G, rs)
-    qs = kernels.bt_q(bt.Sinv, ys)
     t_f = median_ms(lambda: kernels.bt_fwd(bt.G, rs), reps=7)
-    t_q = median_ms(lambda: kernels.bt_q(bt.Sinv, ys), reps=7)
-    t_b = median_ms(lambda: kernels.bt_bwd(bt.G, qs), reps=7)
-    print(f"K2-K4 bt_apply b={b} NB={NB} {str(bt.G.dtype)[6:]}: max scaled "
-          f"err {err:.3e} "
-          f"(tol {tol:g}); median fwd {t_f:.4f} ms, q {t_q:.4f} ms, "
-          f"bwd {t_b:.4f} ms", flush=True)
+    t_qb = median_ms(lambda: kernels.bt_qbwd(bt.Sinv, bt.G, ys), reps=7)
+    print(f"bt_apply b={b} NB={NB} {str(dtype)[6:]}: max scaled err "
+          f"{err:.3e} (tol {tol:g}); median fwd {t_f:.4f} ms, qbwd "
+          f"{t_qb:.4f} ms; bt_qbwd "
+          f"{describe_qbwd_plan(kernels, torch, b, dtype)}", flush=True)
     if not err <= tol:
         fail(f"bt_apply disagrees with its plain version: {err:.3e}")
     check_sweeps(kernels, torch, gen, bt, "random factor", tol)
@@ -294,11 +332,20 @@ def kernel_phase(torch, seed: int) -> None:
                   torch.bfloat16, TOL)
     check_band_mv(kernels, torch, gen, 488, 512, 2560, -2, 249_600 - 300,
                   torch.float32, TOL)
+    bf16 = torch.bfloat16
+    # the 250k factor's shape; b=2048 streams a block step in chunks
     check_bt_apply(kernels, blocktri, torch, gen, 244, 1024, TOL)
     check_bt_apply(kernels, blocktri, torch, gen, 6, 2048, TOL)
-    # the 4.47M path's bf16 BTSmoother block size
+    # the 4.47M path's bf16 BTSmoother block size, the smallest b, and
+    # the shortest chains (NB=1: no G, no exchange)
     check_bt_apply(kernels, blocktri, torch, gen, 64, 896, BF16_CHAIN_TOL,
-                   torch.bfloat16)
+                   bf16)
+    check_bt_apply(kernels, blocktri, torch, gen, 300, 256, BF16_CHAIN_TOL,
+                   bf16)
+    for NB in (1, 2):
+        check_bt_apply(kernels, blocktri, torch, gen, NB, 1024, TOL)
+        check_bt_apply(kernels, blocktri, torch, gen, NB, 896,
+                       BF16_CHAIN_TOL, bf16)
     # K5 at the 4.47M fine level's triu band (34909, 128, 1024), shift0 0
     check_band_sym(kernels, torch, gen, 34909, 128, 1024, 0, 4_468_229,
                    torch.float32, TOL)
@@ -308,7 +355,7 @@ def kernel_phase(torch, seed: int) -> None:
     check_band_sym(kernels, torch, gen, 3001, 256, 768, 1, 3001 * 256 - 131,
                    torch.float32, TOL)
     torch.cuda.empty_cache()
-    # the one-call library equivalent of K3 (batched GEMV)
+    # the one-call library equivalent of bt_qbwd's q part (K3: batched GEMV)
     bt = random_factor(torch, gen, 244, 1024)
     y = torch.randn((244, 1024), generator=gen, device="cuda")
     lib = median_ms(lambda: torch.bmm(bt.Sinv, y[:, :, None]))
@@ -370,12 +417,13 @@ def main_path(torch, nodes: int):
     bt = state["bt"]
     b, NB = state["bt_shape"]
     print(f"regime: band {tuple(band.dense.shape)} {band.dense.dtype} "
-          f"shift0={band.shift0}, block-tridiagonal factor b={b} NB={NB}",
+          f"shift0={band.shift0}, block-tridiagonal factor b={b} NB={NB}; "
+          f"bt_qbwd {describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
           flush=True)
     print(f"launches over both solves: {launches}; CG iterations {cg}",
           flush=True)
-    if not (launches["bt_fwd"] == launches["bt_q"] == launches["bt_bwd"]
-            >= cg > 0 and launches["band_mv"] >= cg):
+    if not (launches["bt_fwd"] == launches["bt_qbwd"] >= cg > 0
+            and launches["band_mv"] >= cg):
         fail("a kernel of the main path was launched less than once per "
              "CG iteration")
     dA = float(abs(sols[0].A - sols[1].A).max() / abs(sols[0].A).max())
@@ -409,27 +457,25 @@ def measure_on_main_path(torch, band, bt):
     NB, b, _ = bt.Sinv.shape
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(bt.G, rs)
-    qs = kernels.bt_q(bt.Sinv, ys)
-    vec = 2 * 4 * NB * b
+    vec = 2 * 4 * NB * b            # the vector in and the vector out
     gbytes = bt.G.numel() * bt.G.element_size()
     sbytes = bt.Sinv.numel() * bt.Sinv.element_size()
-    for name, fn, plain, mat, v, mb in (
-            ("bt_fwd", kernels.bt_fwd, kernels.bt_fwd_plain, bt.G, rs,
-             gbytes),
-            ("bt_q", kernels.bt_q, kernels.bt_q_plain, bt.Sinv, ys, sbytes),
-            ("bt_bwd", kernels.bt_bwd, kernels.bt_bwd_plain, bt.G, qs,
-             gbytes)):
-        k, p = fn(mat, v), plain(mat, v)
-        err, rel = float((k - p).abs().max()), rel_err(k, p)
-        lib = None
-        if name == "bt_q":
-            lib = median_ms(lambda: torch.bmm(mat, v[:, :, None]))
+    for name, fn, plain, mb, flops, lib in (
+            ("bt_fwd", lambda: kernels.bt_fwd(bt.G, rs),
+             lambda: kernels.bt_fwd_plain(bt.G, rs), gbytes,
+             2.0 * (NB - 1) * b * b, None),
+            ("bt_qbwd", lambda: kernels.bt_qbwd(bt.Sinv, bt.G, ys),
+             lambda: kernels.bt_qbwd_plain(bt.Sinv, bt.G, ys),
+             gbytes + sbytes, 2.0 * (2 * NB - 1) * b * b,
+             lambda: torch.bmm(bt.Sinv, ys[:, :, None]))):
+        k, p = fn(), plain()
         rows.append(dict(
-            name=name, err=err, rel=rel,
-            ms=median_ms(lambda: fn(mat, v), reps=7),
-            plain_ms=median_ms(lambda: plain(mat, v), reps=5),
-            bound=bound_ms(mb + vec, 2.0 * mat.shape[0] * b * b),
-            library_ms=lib))
+            name=name, err=float((k - p).abs().max()), rel=rel_err(k, p),
+            ms=median_ms(fn, reps=7), plain_ms=median_ms(plain, reps=5),
+            bound=bound_ms(mb + vec, flops),
+            library_ms=None if lib is None else median_ms(lib)))
+    print(f"main-path bt_qbwd step breakdown (clock cycles): "
+          f"{qbwd_breakdown(kernels, torch, bt, ys)}", flush=True)
     for r in rows:
         print(f"main-path {r['name']}: max abs err {r['err']:.3e} "
               f"(rel {r['rel']:.3e}), "
@@ -581,6 +627,10 @@ def large_path(torch, nodes: int):
           f"residual {sol.residual:.3e}, peak device memory "
           f"{peak / 1e9:.2f} GB", flush=True)
     print(profiling.report(), flush=True)
+    cg_s = profiling.phase_seconds("device cg")
+    print(f"large solve device cg {cg_s:.3f} s over {sol.iterations} CG "
+          f"iterations: {1e3 * cg_s / max(sol.iterations, 1):.3f} ms per "
+          f"iteration", flush=True)
     state = next(iter(solver._BAND_CACHE.values()))
     amg, bt = state["band_amg"], state["bt"]
     lv0 = amg.levels[0]
@@ -616,8 +666,8 @@ def large_path(torch, nodes: int):
         fail("large A is not a finite per-node vector")
     cg = sol.iterations
     if not (launches["band_sym"] >= 3 * cg > 0
-            and launches["bt_fwd"] == launches["bt_q"] == launches["bt_bwd"]
-            >= 2 * cg and launches["band_mv"] > 0):
+            and launches["bt_fwd"] == launches["bt_qbwd"] >= 2 * cg
+            and launches["band_mv"] > 0):
         fail("a kernel of the large path was launched fewer times than the "
              "V-cycle needs")
     return launches, amg, bt
@@ -628,7 +678,8 @@ def check_live_hierarchy(torch, amg, bt) -> None:
     live tensors of the 4.47M solve: each level's operator band (K5 where
     it is stored triu, else K1), its bf16 smoothing copy and its bf16
     prolongator band (K1), at TOL of max|y|; and the live BTSmoother's
-    sweeps (K2-K4), step by step at TOL and chained at BF16_CHAIN_TOL."""
+    sweeps (bt_fwd, bt_qbwd), step by step at TOL and chained at
+    BF16_CHAIN_TOL."""
     from xfemm_tpu_torch.ops import kernels
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
@@ -661,9 +712,11 @@ def check_live_hierarchy(torch, amg, bt) -> None:
 
 
 def measure_large_cg(torch, amg, bt) -> None:
-    """The live BTSmoother's sweeps (NB-1 step launches each) and a short
+    """The live BTSmoother's sweeps (fwd: NB-1 step launches; bt_qbwd:
+    one persistent launch) beside their bytes bounds and the one-call
+    library yardstick of the q part (torch.bmm in bf16), and a short
     window of V-cycle CG iterations under torch.profiler: device time by
-    kernel and the device's busy share of that window."""
+    kernel, the device's busy share and wall ms per iteration."""
     from torch.profiler import ProfilerActivity, profile
 
     from xfemm_tpu_torch.ops import band, kernels
@@ -672,14 +725,25 @@ def measure_large_cg(torch, amg, bt) -> None:
     NB, b, _ = bt.Sinv.shape
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(bt.G, rs)
-    qs = kernels.bt_q(bt.Sinv, ys)
+    yb = ys.to(bt.Sinv.dtype)[:, :, None]
     t_f = median_ms(lambda: kernels.bt_fwd(bt.G, rs), reps=3, warmup=1)
-    t_q = median_ms(lambda: kernels.bt_q(bt.Sinv, ys), reps=3, warmup=1)
-    t_b = median_ms(lambda: kernels.bt_bwd(bt.G, qs), reps=3, warmup=1)
+    t_qb = median_ms(lambda: kernels.bt_qbwd(bt.Sinv, bt.G, ys), reps=5,
+                     warmup=1)
+    t_lib = median_ms(lambda: torch.bmm(bt.Sinv, yb), reps=5, warmup=1)
     gbytes = bt.G.numel() * bt.G.element_size()
+    sbytes = bt.Sinv.numel() * bt.Sinv.element_size()
+    vec = 2 * 4 * NB * b
     print(f"large-path sweeps b={b} NB={NB} {str(bt.G.dtype)[6:]}: fwd "
-          f"{t_f:.3f} ms, q {t_q:.3f} ms, bwd {t_b:.3f} ms (bytes bound of "
-          f"one sweep {gbytes / HBM_BYTES_PER_S * 1e3:.3f} ms)", flush=True)
+          f"{t_f:.3f} ms (bytes bound "
+          f"{(gbytes + vec) / HBM_BYTES_PER_S * 1e3:.3f} ms), bt_qbwd "
+          f"{t_qb:.3f} ms (bytes bound "
+          f"{(gbytes + sbytes + vec) / HBM_BYTES_PER_S * 1e3:.3f} ms; "
+          f"library torch.bmm of the q part {t_lib:.3f} ms); bt_qbwd "
+          f"{describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
+          flush=True)
+    print(f"large-path bt_qbwd step breakdown (clock cycles): "
+          f"{qbwd_breakdown(kernels, torch, bt, ys)}", flush=True)
+    del yb
     n = amg.n
     rhs = torch.randn(n, generator=gen, device="cuda")
     x0 = torch.zeros(n, device="cuda")
@@ -696,7 +760,8 @@ def measure_large_cg(torch, amg, bt) -> None:
                   if str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e6
     print(f"profiled {iters} large-path CG iterations (+ start and drift "
-          f"check): {wall:.3f} s wall, device busy {busy:.3f} s "
+          f"check): {wall:.3f} s wall ({1e3 * wall / iters:.1f} ms per "
+          f"iteration), device busy {busy:.3f} s "
           f"({100.0 * busy / wall:.1f}%)", flush=True)
     for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "

@@ -16,7 +16,8 @@ The block-Thomas factorization is dense linear algebra,
 applying the factor is two sweeps of ``b``-sized matvecs (forward
 ``y_i = r_i - G_{i-1} y_{i-1}``, backward
 ``x_i = S_i^{-1} y_i - G_i^T x_{i+1}``) that run as the hand-written
-CUDA kernels K2-K4 of ops/kernels.py on the card. With symmetric Jacobi
+CUDA kernels of ops/kernels.py on the card (``bt_fwd``, and ``bt_qbwd``
+for the Sinv products and the backward sweep in one launch). With symmetric Jacobi
 scaling one application contracts the residual by ~1e3-1e4, so the
 band CG converges in a handful of iterations and the factor stays
 frozen across Newton iterations until the session's staleness rule
@@ -343,16 +344,15 @@ def bt_build(maps_or_lay, vals, b: int, NB: int, store_dtype=torch.float32,
 
 
 def bt_apply(bt: BTFactor, r: torch.Tensor) -> torch.Tensor:
-    """z ~= A^{-1} r, through the three sweep kernels (K2-K4) on the card
-    and their plain versions on CPU tensors."""
+    """z ~= A^{-1} r, through the sweep kernels (bt_fwd, then bt_qbwd) on
+    the card and their plain versions on CPU tensors."""
     NB, b, _ = bt.Sinv.shape
     n = r.shape[0]
     rs = torch.zeros(NB * b, dtype=torch.float32, device=r.device)
     rs[:n] = bt.s[:n] * r
     rs = rs.view(NB, b)
     ys = kernels.bt_fwd(bt.G, rs)
-    qs = kernels.bt_q(bt.Sinv, ys)
-    zs = kernels.bt_bwd(bt.G, qs)
+    zs = kernels.bt_qbwd(bt.Sinv, bt.G, ys)
     return bt.s[:n] * zs.view(-1)[:n]
 
 

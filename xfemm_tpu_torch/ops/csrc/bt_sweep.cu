@@ -1,33 +1,25 @@
-// Block-Thomas apply of the block-tridiagonal preconditioner, for Hopper
-// (sm_90a): the three kernels of xfemm_tpu/ops/blocktri.py::
-// _bt_apply_pallas.
+// Forward block-Thomas sweep of the block-tridiagonal preconditioner,
+// for Hopper (sm_90a): replaces fwd_kernel of xfemm_tpu/ops/blocktri.py::
+// _bt_apply_pallas,
 //
-//   fwd (replaces fwd_kernel):  y_0 = r_0,  y_t = r_t - G_{t-1} y_{t-1}
-//   q   (replaces q_kernel):    q_t = Sinv_t y_t            (all t at once)
-//   bwd (replaces bwd_kernel):  z_{NB-1} = q_{NB-1},
-//                               z_t = q_t - G_t^T z_{t+1}
+//   y_0 = r_0,  y_t = r_t - G_{t-1} y_{t-1}
 //
-// G is (NB-1, b, b), Sinv is (NB, b, b), vectors are (NB, b), row-major.
+// G is (NB-1, b, b), vectors are (NB, b), row-major. The other half of the
+// apply, the Sinv products and the backward sweep (q_kernel and
+// bwd_kernel), is one persistent kernel: bt_qbwd.cu.
 //
-// Bound: bytes. Each sweep streams its factor half once (1.02 GB of G or
-// Sinv in f32 at b=1024, NB=244) with 2 flops per element. The sweeps
-// are a chain of NB-1 dependent b x b matvecs; the TPU walks it as a
-// sequential grid with the carry in VMEM. On Hopper one block cannot
-// stream 4 MB per step fast enough, so each step is its own grid that
-// spreads the b x b block over b/8 blocks (128 at b=1024), and the host
-// side of this file enqueues the NB-1 step launches back to back on the
-// caller's stream; stream order carries the dependency. That costs one
-// launch per step (2*(NB-1) + 1 per apply). A persistent kernel with a
-// grid-wide barrier would remove them.
+// Bound: bytes. The sweep streams G once (1.02 GB in f32 at b=1024,
+// NB=244) with 2 flops per element. It is a chain of NB-1 dependent
+// b x b matvecs; the TPU walks it as a sequential grid with the carry in
+// VMEM. Here each step is its own grid that spreads the b x b block over
+// b/8 blocks (128 at b=1024), and the host side of this file enqueues the
+// NB-1 step launches back to back on the caller's stream; stream order
+// carries the dependency. That costs one launch per step.
 //
-// fwd and q contract along G's and Sinv's rows (one warp per row,
-// 16-byte loads along the row). bwd contracts over G's rows (G^T z):
-// each block owns 8 adjacent columns and 32 row groups, so a warp reads
-// four 32-byte row segments per step (whole sectors), and the 32 partial
-// sums of a column are reduced in shared memory in a fixed order --
-// deterministic, no atomics. The carried vector is staged in shared
-// memory, rounded to the factor's storage type as the TPU kernel rounds
-// it; every product accumulates in fp32 FMA (never TF32).
+// One warp per row of G_t, 16-byte loads along the row. The carried
+// vector is staged in shared memory, rounded to the factor's storage type
+// as the TPU kernel rounds it; every product accumulates in fp32 FMA
+// (never TF32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -36,8 +28,6 @@
 namespace {
 
 constexpr int WARPS = 8;
-constexpr int COLS = 8;           // bwd: columns per block
-constexpr int GROUPS = WARPS * 4; // bwd: row groups per block
 
 template <typename T> __device__ __forceinline__ float round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) {
@@ -104,36 +94,6 @@ rowdot_kernel(const T* __restrict__ M, const float* __restrict__ vec,
   }
 }
 
-// z[j] = q[j] - sum_i G[i, j] * zn[i] for the columns j of this block
-template <typename T>
-__global__ void __launch_bounds__(WARPS * 32)
-coldot_kernel(const T* __restrict__ G, const float* __restrict__ zn,
-              const float* __restrict__ q, float* __restrict__ z, int b) {
-  extern __shared__ float smem[];
-  float* zs = smem;             // b values of z_{t+1}
-  float* part = smem + b;       // GROUPS x COLS partial sums
-  for (int i = threadIdx.x; i < b; i += blockDim.x) zs[i] = round_to<T>(zn[i]);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int c = lane % COLS;
-  const int g = (threadIdx.x >> 5) * 4 + lane / COLS;
-  const int col = blockIdx.x * COLS + c;
-  float acc = 0.f;
-  if (col < b) {
-#pragma unroll 8
-    for (int i = g; i < b; i += GROUPS)
-      acc = fmaf(to_f(G[(size_t)i * b + col]), zs[i], acc);
-  }
-  part[g * COLS + c] = acc;
-  __syncthreads();
-  if (threadIdx.x < COLS) {
-    const int j = blockIdx.x * COLS + threadIdx.x;
-    float s = 0.f;
-    for (int k = 0; k < GROUPS; ++k) s += part[k * COLS + threadIdx.x];
-    if (j < b) z[j] = q[j] - s;
-  }
-}
-
 template <typename T>
 bool vec_ok(const void* M, int b) {
   return (b % (16 / (int)sizeof(T)) == 0) &&
@@ -175,41 +135,6 @@ int fwd(const void* Gv, const void* rv, void* yv, int NB, int b,
   return 0;
 }
 
-template <typename T>
-int qmul(const void* Sv, const void* yv, void* qv, int NB, int b,
-         void* stream) {
-  if (NB <= 0 || b <= 0) return 0;
-  return (int)rowdot<T>(static_cast<const T*>(Sv),
-                        static_cast<const float*>(yv), nullptr,
-                        static_cast<float*>(qv), b, NB, 1.f,
-                        static_cast<cudaStream_t>(stream));
-}
-
-template <typename T>
-int bwd(const void* Gv, const void* qv, void* zv, int NB, int b,
-        void* stream) {
-  if (NB <= 0 || b <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* G = static_cast<const T*>(Gv);
-  const float* q = static_cast<const float*>(qv);
-  float* z = static_cast<float*>(zv);
-  cudaError_t e = cudaMemcpyAsync(z + (size_t)(NB - 1) * b,
-                                  q + (size_t)(NB - 1) * b,
-                                  (size_t)b * sizeof(float),
-                                  cudaMemcpyDeviceToDevice, s);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((b + COLS - 1) / COLS));
-  const size_t shm = ((size_t)b + GROUPS * COLS) * sizeof(float);
-  for (int t = NB - 2; t >= 0; --t) {
-    coldot_kernel<T><<<grid, WARPS * 32, shm, s>>>(
-        G + (size_t)t * b * b, z + (size_t)(t + 1) * b, q + (size_t)t * b,
-        z + (size_t)t * b, b);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
-}
-
 }  // namespace
 
 extern "C" {
@@ -221,22 +146,6 @@ int bt_fwd_f32(const void* G, const void* r, void* y, int NB, int b,
 int bt_fwd_bf16(const void* G, const void* r, void* y, int NB, int b,
                 void* stream) {
   return fwd<__nv_bfloat16>(G, r, y, NB, b, stream);
-}
-int bt_q_f32(const void* S, const void* y, void* q, int NB, int b,
-             void* stream) {
-  return qmul<float>(S, y, q, NB, b, stream);
-}
-int bt_q_bf16(const void* S, const void* y, void* q, int NB, int b,
-              void* stream) {
-  return qmul<__nv_bfloat16>(S, y, q, NB, b, stream);
-}
-int bt_bwd_f32(const void* G, const void* q, void* z, int NB, int b,
-               void* stream) {
-  return bwd<float>(G, q, z, NB, b, stream);
-}
-int bt_bwd_bf16(const void* G, const void* q, void* z, int NB, int b,
-                void* stream) {
-  return bwd<__nv_bfloat16>(G, q, z, NB, b, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels of the band engine, and their plain
 PyTorch versions.
 
-Five CUDA kernels carry every CG iteration of the band engine
+Four CUDA kernels carry every CG iteration of the band engine
 (``ops/csrc``):
 
 =========  ==========================  =====================================
@@ -10,21 +10,25 @@ wrapper    source                      replaces (TPU kernel of the JAX package)
 band_mv    csrc/band_mv.cu             pallas_band.py::_band_mv_call
 band_sym   csrc/band_sym.cu            pallas_band.py::_band_sym_call
 bt_fwd     csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas fwd_kernel
-bt_q       csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas q_kernel
-bt_bwd     csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas bwd_kernel
+bt_qbwd    csrc/bt_qbwd.cu             blocktri.py::_bt_apply_pallas q_kernel
+                                       and bwd_kernel
 =========  ==========================  =====================================
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface under the package's ``_build/`` directory
-(first use; keyed by a hash of the source and flags) and bound with
-``ctypes``. Kernels launch on PyTorch's current stream and allocate
-nothing; the wrappers allocate the outputs.
+The forward sweep runs as one grid launch per block step; the Sinv
+product and the backward sweep run as ONE persistent cooperative launch
+(one exchange of flagged words between its blocks per step, on
+``csrc/persist.cuh``), planned in Python by ``_qbwd_plan``. Each source is compiled by ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface under the package's
+``_build/`` directory (first use; keyed by a hash of the source, the
+shared headers and the flags) and bound with ``ctypes``. Kernels launch
+on PyTorch's current stream and allocate nothing; the wrappers allocate
+the outputs and scratch.
 
 A wrapper given CPU tensors runs the plain version (the CPU tests and
 the CPU solve path); given CUDA tensors it launches its kernel or
 raises -- it never falls back. ``LAUNCHES`` counts the wrapper calls
-that launched a kernel (a sweep call enqueues NB-1 step grids and counts
-once; band_sym's two passes count once).
+that launched a kernel (a forward sweep enqueues NB-1 step grids and
+counts once; band_sym's two passes count once).
 """
 
 from __future__ import annotations
@@ -37,20 +41,20 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"band_mv": "band_mv.cu", "band_sym": "band_sym.cu",
-           "bt_sweep": "bt_sweep.cu"}
+           "bt_sweep": "bt_sweep.cu", "bt_qbwd": "bt_qbwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 #: kernel launches through the wrappers, by kernel name
-LAUNCHES = {"band_mv": 0, "band_sym": 0, "bt_fwd": 0, "bt_q": 0,
-            "bt_bwd": 0}
+LAUNCHES = {"band_mv": 0, "band_sym": 0, "bt_fwd": 0, "bt_qbwd": 0}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -76,6 +80,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     src = (_CSRC / SOURCES[name]).read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()) \
         .hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
@@ -118,8 +123,8 @@ _SIGS = {
     "band_sym": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                  _INT, _INT, _PTR],
     "bt_fwd": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
-    "bt_q": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
-    "bt_bwd": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
+    "bt_qbwd": [_PTR] * 5 + [_INT] * 8 + [_PTR, _PTR],
+    "bt_qbwd_occupancy": [_INT, _INT],
 }
 
 
@@ -343,45 +348,150 @@ def bt_bwd_plain(G: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return z
 
 
-def _sweep(name: str, mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    NB, b = v.shape
-    if v.dtype != torch.float32:
-        raise ValueError(f"{name}: vector must be float32")
-    if mat.shape[1:] != (b, b):
-        raise ValueError(f"{name}: factor blocks {tuple(mat.shape)} do not "
-                         f"match vector blocks ({NB}, {b})")
-    _check(name, mat, v)
-    out = torch.empty_like(v)
-    with torch.cuda.device(v.device):
-        rc = _fn("bt_sweep", name, mat.dtype)(
-            mat.data_ptr(), v.data_ptr(), out.data_ptr(), NB, b, _stream(v))
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return out
+def bt_qbwd_plain(Sinv: torch.Tensor, G: torch.Tensor,
+                  y: torch.Tensor) -> torch.Tensor:
+    """Plain version of bt_qbwd: the Sinv products, then the backward
+    sweep."""
+    return bt_bwd_plain(G, bt_q_plain(Sinv, y))
 
 
 def bt_fwd(G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """Forward block-Thomas sweep (K2) over (NB, b) blocks."""
     if not r.is_cuda:
         return bt_fwd_plain(G, r)
-    if G.shape[0] != r.shape[0] - 1 and r.shape[0] > 1:
-        raise ValueError("bt_fwd: G must hold NB-1 blocks")
-    return _sweep("bt_fwd", G, r)
+    NB, b = r.shape
+    if r.dtype != torch.float32:
+        raise ValueError("bt_fwd: vector must be float32")
+    if G.shape[1:] != (b, b) or G.shape[0] != NB - 1 and NB > 1:
+        raise ValueError(f"bt_fwd: G {tuple(G.shape)} does not hold the "
+                         f"NB-1 blocks of r ({NB}, {b})")
+    _check("bt_fwd", G, r)
+    y = torch.empty_like(r)
+    with torch.cuda.device(r.device):
+        rc = _fn("bt_sweep", "bt_fwd", G.dtype)(
+            G.data_ptr(), r.data_ptr(), y.data_ptr(), NB, b, _stream(r))
+    _raise_on(rc, "bt_fwd")
+    LAUNCHES["bt_fwd"] += 1
+    return y
 
 
-def bt_q(Sinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Batched block products q_t = Sinv_t y_t (K3)."""
+#: bt_qbwd's reader threads, columns per reader thread, rows per warp,
+#: grid and ring limits, and its mbarrier area (csrc/bt_qbwd.cu THREADS,
+#: 8, MAXR, MAX_BLOCKS, MAX_STAGES, BAR_BYTES)
+_QB_THREADS = 256
+_QB_MAX_COLS = 8
+_QB_MAX_ROWS = 2
+_QB_MAX_BLOCKS = 160
+_QB_MAX_STAGES = 32
+_QB_BAR_BYTES = 1024
+#: dynamic shared memory one block may use on Hopper (227 KB)
+SMEM_LIMIT = 232_448
+#: the ring takes the largest stage that still leaves this many stages
+_QB_MIN_STAGES = 4
+
+
+class QbwdPlan(NamedTuple):
+    """Grid and shared-memory ring of one bt_qbwd launch."""
+    blocks: int       # grid size, at most one block per SM
+    rows: int         # rows of every G_t and Sinv_t a block owns (the
+                      # last block: what is left, at least one)
+    stage_rows: int   # rows one ring stage holds
+    chunks: int       # chunks a block's rows of one matrix stream in
+    stages: int       # ring stages
+    smem_bytes: int   # dynamic shared memory of one block
+
+
+def _qbwd_smem(b: int, item: int, rows: int, blocks: int, stage_rows: int,
+               stages: int) -> int:
+    """Shared memory of one block (csrc/bt_qbwd.cu smem_need): mbarriers,
+    the ring (each stage: stage_rows rows, and y_t), the block's z^ for
+    two steps, and one step's partials of its rows from every block."""
+    return (_QB_BAR_BYTES + stages * (stage_rows * b * item + 4 * b)
+            + 4 * (2 * rows + blocks * rows))
+
+
+def _qbwd_plan(b: int, dtype: torch.dtype, n_sm: int) -> QbwdPlan:
+    """Row split and ring plan of bt_qbwd for block size ``b``, factor
+    storage ``dtype`` and a card of ``n_sm`` SMs: the fewest rows per
+    block that spread b rows over at most n_sm blocks, then the fewest
+    chunks per block step that leave _QB_MIN_STAGES stages (at b=2048 in
+    f32 a block's 16 rows of one matrix, 128 KB, stream in 4 chunks)."""
+    if b <= 0 or b % 8 or b > _QB_THREADS * _QB_MAX_COLS:
+        raise ValueError(f"bt_qbwd: block size {b} must be a multiple of 8 "
+                         f"up to {_QB_THREADS * _QB_MAX_COLS}")
+    item = torch.empty((), dtype=dtype).element_size()
+    rows = -(-b // n_sm)
+    blocks = -(-b // rows)
+    if rows > _QB_THREADS // 32 * _QB_MAX_ROWS or blocks > _QB_MAX_BLOCKS:
+        raise ValueError(f"bt_qbwd: b={b} does not split over {n_sm} SMs")
+    for chunks in range(1, rows + 1):
+        stage_rows = -(-rows // chunks)
+        free = SMEM_LIMIT - _qbwd_smem(b, item, rows, blocks, stage_rows, 0)
+        stages = min(_QB_MAX_STAGES, free // (stage_rows * b * item + 4 * b))
+        if stages >= _QB_MIN_STAGES or stage_rows == 1:
+            break
+    if stages < max(2, chunks):
+        raise ValueError(f"bt_qbwd: b={b} leaves no room for a ring")
+    return QbwdPlan(blocks=blocks, rows=rows, stage_rows=stage_rows,
+                    chunks=chunks, stages=stages,
+                    smem_bytes=_qbwd_smem(b, item, rows, blocks, stage_rows,
+                                          stages))
+
+
+def qbwd_blocks_per_sm(b: int, dtype: torch.dtype, smem_bytes: int) -> int:
+    """Blocks of bt_qbwd for block size ``b`` resident on one SM at
+    ``smem_bytes`` of shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = _fn("bt_qbwd", "bt_qbwd_occupancy", dtype)(b, smem_bytes)
+    _raise_on(max(0, -n), "bt_qbwd occupancy")
+    return n
+
+
+#: the points of a step bt_qbwd's trace records, in order (clock64 of the
+#: first thread of the first and the last block)
+QBWD_TRACE_POINTS = ("start", "q done", "partials in", "z done",
+                     "readers synced", "G stage in", "G product done",
+                     "partials published")
+
+
+def bt_qbwd(Sinv: torch.Tensor, G: torch.Tensor, y: torch.Tensor,
+            trace: torch.Tensor | None = None) -> torch.Tensor:
+    """z = the Sinv products and backward block-Thomas sweep (K3 + K4)
+    over (NB, b) blocks: z_{NB-1} = Sinv_{NB-1} y_{NB-1}, z_t = Sinv_t
+    y_t - G_t^T z_{t+1}, in one persistent cooperative launch. Raises if
+    the card refuses the launch (every block must be resident).
+    ``trace``, an int64 (2, NB, 8) CUDA tensor, receives the clock at
+    QBWD_TRACE_POINTS of every step in the first and the last block."""
     if not y.is_cuda:
-        return bt_q_plain(Sinv, y)
-    if Sinv.shape[0] != y.shape[0]:
-        raise ValueError("bt_q: Sinv must hold NB blocks")
-    return _sweep("bt_q", Sinv, y)
-
-
-def bt_bwd(G: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Backward block-Thomas sweep (K4) over (NB, b) blocks."""
-    if not q.is_cuda:
-        return bt_bwd_plain(G, q)
-    if G.shape[0] != q.shape[0] - 1 and q.shape[0] > 1:
-        raise ValueError("bt_bwd: G must hold NB-1 blocks")
-    return _sweep("bt_bwd", G, q)
+        return bt_qbwd_plain(Sinv, G, y)
+    NB, b = y.shape
+    if y.dtype != torch.float32:
+        raise ValueError("bt_qbwd: y must be float32")
+    if Sinv.shape != (NB, b, b) or G.shape != (NB - 1, b, b):
+        raise ValueError(f"bt_qbwd: Sinv {tuple(Sinv.shape)} and G "
+                         f"{tuple(G.shape)} do not match y ({NB}, {b})")
+    if G.dtype != Sinv.dtype:
+        raise ValueError("bt_qbwd: Sinv and G must share a storage dtype")
+    _check("bt_qbwd", Sinv, G, y, *(() if trace is None else (trace,)))
+    if any(t.data_ptr() % 16 for t in (Sinv, G, y)):
+        raise ValueError("bt_qbwd: tensors must be 16-byte aligned")
+    if trace is not None and (trace.dtype != torch.int64
+                              or trace.shape != (2, NB, 8)):
+        raise ValueError("bt_qbwd: trace must be an int64 (2, NB, 8) "
+                         "tensor")
+    plan = _qbwd_plan(b, Sinv.dtype,
+                      torch.cuda.get_device_properties(y.device)
+                      .multi_processor_count)
+    z = torch.empty_like(y)
+    # the exchange: 3 step slots of (blocks, blocks, rows) 8-byte words
+    work = torch.empty(6 * plan.blocks * plan.blocks * plan.rows,
+                       dtype=torch.float32, device=y.device)
+    with torch.cuda.device(y.device):
+        rc = _fn("bt_qbwd", "bt_qbwd", Sinv.dtype)(
+            Sinv.data_ptr(), G.data_ptr(), y.data_ptr(), z.data_ptr(),
+            work.data_ptr(), NB, b, plan.rows, plan.stage_rows, plan.chunks,
+            plan.stages, plan.blocks, plan.smem_bytes,
+            0 if trace is None else trace.data_ptr(), _stream(y))
+    _raise_on(rc, "bt_qbwd")
+    LAUNCHES["bt_qbwd"] += 1
+    return z
