@@ -9,19 +9,21 @@ Phases (any failure exits non-zero, with no result line):
    (one nvcc per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the band matvec (K1) at (1949, 128, 2176) in f32
-   and bf16 and an R=512 band, the block-Thomas apply (the forward sweep
-   K2 and the fused Sinv product + backward sweep bt_qbwd) at b=1024,
-   NB=244, at b=2048 (a ring of chunks), in bf16 at b=896 and b=256, and
-   at NB=1 and 2 (each sweep also step by step, bt_qbwd twice for
-   bitwise determinism), the fused symmetric apply (K5) at the 4.47M
-   fine level's (34909, 128, 1024) in f32, a bf16 band, and an R=256
-   band with a positive shift0; print errors, median times and
-   bt_qbwd's launch plan (``--kernels-only`` stops here);
+   and bf16 and an R=512 band, the block-Thomas apply (the persistent
+   forward sweep bt_fwd (K2) and the fused Sinv product + backward sweep
+   bt_qbwd (K3 + K4)) at b=1024, NB=244, at b=2048 (a ring of chunks),
+   in bf16 at b=896 and b=256, and at NB=1 and 2 (each sweep also step
+   by step, and twice for bitwise determinism), the fused symmetric
+   apply (K5) at the 4.47M fine level's (34909, 128, 1024) in f32, a
+   bf16 band, and an R=256 band with a positive shift0; print errors,
+   median times and both sweeps' launch plans (``--kernels-only`` stops
+   here);
 3. the 250k path (slice 1): ``benchprob.build(250_000)``, the port's
    mesher (npz cache under .bench_cache/), ``magnetostatics.solve`` cold
    and warm on the card, counting the kernels' launches; check the
    residual, the bt-alone regime and the launch counts; time each
-   kernel and its plain version on the path's own band and factor;
+   kernel and its plain version on the path's own band and factor, with
+   the clock cycles per phase of a step of both sweeps (their traces);
    profile one more warm solve with torch.profiler (device time by
    kernel, busy share); one cold solve with the fine level alone and
    one with the full hierarchy (the cost of the bt-alone regime's
@@ -33,12 +35,13 @@ Phases (any failure exits non-zero, with no result line):
    bf16 BTSmoother, band-AMG V-cycle), the residual and the launch
    counts; hold every kernel against its plain version on the live
    hierarchy and smoother (each level's K5 or K1 band, bf16 copy and
-   prolongator; the sweeps step by step and chained); time K5 on the
-   live fine band and the live smoother's fwd and bt_qbwd (with
-   bt_qbwd's clock cycles per phase of a step), profile a few CG
-   iterations; then the V-cycle on a small problem (Temp.fem at a
-   1.5e8-byte plan, triu storage forced for this check only), card
-   against CPU, cold and again, with its CG iterations bounded;
+   prolongator; the sweeps step by step, chained and repeated); time K5
+   on the live fine band and the live smoother's bt_fwd and bt_qbwd
+   (with both sweeps' launch plans and clock cycles per phase of a
+   step), profile a few CG iterations; then the V-cycle on a small
+   problem (Temp.fem at a 1.5e8-byte plan, triu storage forced for this
+   check only), card against CPU, cold and again, with its CG iterations
+   bounded;
    ``--large-only`` runs phases 1, 2 and 4;
 5. print the ``kernels`` JSON line, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
@@ -77,7 +80,7 @@ REPLACES = {
 SOURCES = {
     "band_mv": "xfemm_tpu_torch/ops/csrc/band_mv.cu",
     "band_sym": "xfemm_tpu_torch/ops/csrc/band_sym.cu",
-    "bt_fwd": "xfemm_tpu_torch/ops/csrc/bt_sweep.cu",
+    "bt_fwd": "xfemm_tpu_torch/ops/csrc/bt_fwd.cu",
     "bt_qbwd": "xfemm_tpu_torch/ops/csrc/bt_qbwd.cu",
 }
 
@@ -201,38 +204,70 @@ TOL = 1e-5
 BF16_CHAIN_TOL = 3e-2
 
 
-def describe_qbwd_plan(kernels, torch, b: int, dtype) -> str:
-    """bt_qbwd's launch on this card: grid, residency, ring."""
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    p = kernels._qbwd_plan(b, dtype, n_sm)
-    per_sm = kernels.qbwd_blocks_per_sm(b, dtype, p.smem_bytes)
+def describe_plan(p, per_sm: int, n_sm: int) -> str:
     return (f"grid {p.blocks} blocks ({per_sm} resident per SM x {n_sm} "
             f"SMs), {p.rows} rows per block, ring of {p.stages} stages x "
             f"{p.stage_rows} rows ({p.chunks} chunk(s) per matrix and "
             f"step), {p.smem_bytes} B shared memory")
 
 
-def qbwd_breakdown(kernels, torch, bt, ys) -> str:
-    """Where a step of bt_qbwd goes: one traced call on (bt, ys), the
-    mean clock cycles between its trace points over the steps that have
-    them all (NB-2 .. 1), in the first and the last block."""
-    NB = ys.shape[0]
-    if NB < 4:
-        return "too few steps to trace"
-    tr = torch.zeros((2, NB, 8), dtype=torch.int64, device="cuda")
-    kernels.bt_qbwd(bt.Sinv, bt.G, ys, trace=tr)
-    tr = tr[:, 1:NB - 1].double().cpu()
-    names = kernels.QBWD_TRACE_POINTS
+def describe_qbwd_plan(kernels, torch, b: int, dtype) -> str:
+    """bt_qbwd's launch on this card: grid, residency, ring."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = kernels._qbwd_plan(b, dtype, n_sm)
+    return describe_plan(p, kernels.qbwd_blocks_per_sm(b, dtype,
+                                                       p.smem_bytes), n_sm)
+
+
+def describe_fwd_plan(kernels, torch, b: int, dtype) -> str:
+    """bt_fwd's launch on this card: grid, residency, ring."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    p = kernels._fwd_plan(b, dtype, n_sm)
+    return describe_plan(p, kernels.fwd_blocks_per_sm(dtype, p.smem_bytes),
+                         n_sm)
+
+
+def step_breakdown(tr, names) -> str:
+    """Mean clock cycles between a persistent sweep's trace points, over
+    the steps of ``tr`` (2, steps, points), in the first and the last
+    block."""
+    tr = tr.double().cpu()
+    n = len(names)
     out = []
     for blk, label in ((0, "first"), (1, "last")):
         t = tr[blk]
         step = float((t[1:, 0] - t[:-1, 0]).mean())
         parts = [f"{names[i + 1]} {float((t[:, i + 1] - t[:, i]).mean()):.0f}"
-                 for i in range(7)]
-        parts.append(f"to next step {float((t[1:, 0] - t[:-1, 7]).mean()):.0f}")
+                 for i in range(n - 1)]
+        parts.append(
+            f"to next step {float((t[1:, 0] - t[:-1, n - 1]).mean()):.0f}")
         out.append(f"{label} block {step:.0f} cycles per step: "
                    + ", ".join(parts))
     return "; ".join(out)
+
+
+def qbwd_breakdown(kernels, torch, bt, ys) -> str:
+    """Where a step of bt_qbwd goes: one traced call on (bt, ys), over
+    the steps that have every trace point (NB-2 .. 1)."""
+    NB = ys.shape[0]
+    if NB < 4:
+        return "too few steps to trace"
+    tr = torch.zeros((2, NB, len(kernels.QBWD_TRACE_POINTS)),
+                     dtype=torch.int64, device="cuda")
+    kernels.bt_qbwd(bt.Sinv, bt.G, ys, trace=tr)
+    return step_breakdown(tr[:, 1:NB - 1], kernels.QBWD_TRACE_POINTS)
+
+
+def fwd_breakdown(kernels, torch, G, rs) -> str:
+    """Where a step of bt_fwd goes: one traced call on (G, rs), over the
+    steps that have every trace point (1 .. NB-2)."""
+    NB = rs.shape[0]
+    if NB < 4:
+        return "too few steps to trace"
+    tr = torch.zeros((2, NB, len(kernels.FWD_TRACE_POINTS)),
+                     dtype=torch.int64, device="cuda")
+    kernels.bt_fwd(G, rs, trace=tr)
+    return step_breakdown(tr[:, 1:NB - 1], kernels.FWD_TRACE_POINTS)
 
 
 def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
@@ -241,7 +276,7 @@ def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
     Each is held STEP BY STEP at TOL: the plain step applied to the
     kernel's own neighbouring output (y_{t-1} for fwd, z_{t+1} for
     bt_qbwd), which both sides round to the factor's storage type alike.
-    The chained sweeps are held at ``chain_tol``, and two bt_qbwd calls
+    The chained sweeps are held at ``chain_tol``, and two calls of each
     on the same inputs must agree bit for bit. Returns the step errors
     by kernel."""
     NB, b, _ = bt.Sinv.shape
@@ -249,7 +284,8 @@ def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(G, rs)
     zs = kernels.bt_qbwd(Sinv, G, ys)
-    same = torch.equal(zs, kernels.bt_qbwd(Sinv, G, ys))
+    same = {"bt_fwd": torch.equal(ys, kernels.bt_fwd(G, rs)),
+            "bt_qbwd": torch.equal(zs, kernels.bt_qbwd(Sinv, G, ys))}
 
     def rnd(v):
         return kernels._as_factor_dtype(v, G.dtype)
@@ -283,14 +319,15 @@ def check_sweeps(kernels, torch, gen, bt, label: str, chain_tol: float,
     print(f"K2 + bt_qbwd {label} b={b} NB={NB} {str(G.dtype)[6:]}: per-step "
           f"max rel err fwd {step['bt_fwd']:.3e}, qbwd {step['bt_qbwd']:.3e} "
           f"(tol {TOL:g}); chained fwd {chain['bt_fwd']:.3e}, qbwd "
-          f"{chain['bt_qbwd']:.3e} (tol {chain_tol:g}); two bt_qbwd calls "
-          f"bitwise equal: {same}", flush=True)
+          f"{chain['bt_qbwd']:.3e} (tol {chain_tol:g}); two calls bitwise "
+          f"equal: fwd {same['bt_fwd']}, qbwd {same['bt_qbwd']}", flush=True)
     if not max(step.values()) <= TOL:
         fail(f"a sweep kernel disagrees with its plain step on {label}")
     if not max(chain.values()) <= chain_tol:
         fail(f"a chained sweep disagrees with its plain version on {label}")
-    if not same:
-        fail(f"bt_qbwd gave two results on the same inputs on {label}")
+    for name, ok in same.items():
+        if not ok:
+            fail(f"{name} gave two results on the same inputs on {label}")
     return step
 
 
@@ -312,7 +349,8 @@ def check_bt_apply(kernels, blocktri, torch, gen, NB, b, tol,
     t_qb = median_ms(lambda: kernels.bt_qbwd(bt.Sinv, bt.G, ys), reps=7)
     print(f"bt_apply b={b} NB={NB} {str(dtype)[6:]}: max scaled err "
           f"{err:.3e} (tol {tol:g}); median fwd {t_f:.4f} ms, qbwd "
-          f"{t_qb:.4f} ms; bt_qbwd "
+          f"{t_qb:.4f} ms; bt_fwd "
+          f"{describe_fwd_plan(kernels, torch, b, dtype)}; bt_qbwd "
           f"{describe_qbwd_plan(kernels, torch, b, dtype)}", flush=True)
     if not err <= tol:
         fail(f"bt_apply disagrees with its plain version: {err:.3e}")
@@ -418,6 +456,7 @@ def main_path(torch, nodes: int):
     b, NB = state["bt_shape"]
     print(f"regime: band {tuple(band.dense.shape)} {band.dense.dtype} "
           f"shift0={band.shift0}, block-tridiagonal factor b={b} NB={NB}; "
+          f"bt_fwd {describe_fwd_plan(kernels, torch, b, bt.G.dtype)}; "
           f"bt_qbwd {describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
           flush=True)
     print(f"launches over both solves: {launches}; CG iterations {cg}",
@@ -474,6 +513,8 @@ def measure_on_main_path(torch, band, bt):
             ms=median_ms(fn, reps=7), plain_ms=median_ms(plain, reps=5),
             bound=bound_ms(mb + vec, flops),
             library_ms=None if lib is None else median_ms(lib)))
+    print(f"main-path bt_fwd step breakdown (clock cycles): "
+          f"{fwd_breakdown(kernels, torch, bt.G, rs)}", flush=True)
     print(f"main-path bt_qbwd step breakdown (clock cycles): "
           f"{qbwd_breakdown(kernels, torch, bt, ys)}", flush=True)
     for r in rows:
@@ -712,8 +753,8 @@ def check_live_hierarchy(torch, amg, bt) -> None:
 
 
 def measure_large_cg(torch, amg, bt) -> None:
-    """The live BTSmoother's sweeps (fwd: NB-1 step launches; bt_qbwd:
-    one persistent launch) beside their bytes bounds and the one-call
+    """The live BTSmoother's sweeps (bt_fwd and bt_qbwd, one persistent
+    launch each) beside their bytes bounds and the one-call
     library yardstick of the q part (torch.bmm in bf16), and a short
     window of V-cycle CG iterations under torch.profiler: device time by
     kernel, the device's busy share and wall ms per iteration."""
@@ -726,7 +767,7 @@ def measure_large_cg(torch, amg, bt) -> None:
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(bt.G, rs)
     yb = ys.to(bt.Sinv.dtype)[:, :, None]
-    t_f = median_ms(lambda: kernels.bt_fwd(bt.G, rs), reps=3, warmup=1)
+    t_f = median_ms(lambda: kernels.bt_fwd(bt.G, rs), reps=7, warmup=1)
     t_qb = median_ms(lambda: kernels.bt_qbwd(bt.Sinv, bt.G, ys), reps=5,
                      warmup=1)
     t_lib = median_ms(lambda: torch.bmm(bt.Sinv, yb), reps=5, warmup=1)
@@ -738,9 +779,12 @@ def measure_large_cg(torch, amg, bt) -> None:
           f"{(gbytes + vec) / HBM_BYTES_PER_S * 1e3:.3f} ms), bt_qbwd "
           f"{t_qb:.3f} ms (bytes bound "
           f"{(gbytes + sbytes + vec) / HBM_BYTES_PER_S * 1e3:.3f} ms; "
-          f"library torch.bmm of the q part {t_lib:.3f} ms); bt_qbwd "
+          f"library torch.bmm of the q part {t_lib:.3f} ms); bt_fwd "
+          f"{describe_fwd_plan(kernels, torch, b, bt.G.dtype)}; bt_qbwd "
           f"{describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
           flush=True)
+    print(f"large-path bt_fwd step breakdown (clock cycles): "
+          f"{fwd_breakdown(kernels, torch, bt.G, rs)}", flush=True)
     print(f"large-path bt_qbwd step breakdown (clock cycles): "
           f"{qbwd_breakdown(kernels, torch, bt, ys)}", flush=True)
     del yb

@@ -57,7 +57,7 @@
 namespace {
 
 constexpr int WARPS = 8;              // reader warps
-constexpr int THREADS = WARPS * 32;   // reader threads (kernels._QB_THREADS)
+constexpr int THREADS = WARPS * 32;   // reader threads (kernels._PK_THREADS)
 constexpr int POLLERS = 2;            // poller warps
 constexpr int PW = 16;                // words a poller lane holds per round
 constexpr int BLOCK = THREADS + 32 + POLLERS * 32;  // + one producer warp
@@ -66,13 +66,8 @@ constexpr int MAX_BLOCKS = 160;
 constexpr int MAX_STAGES = 32;
 constexpr int BAR_BYTES = 1024;       // full[32], empty[32], pready, pfree
 
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
+using persist::round_to;
+using persist::warp_sum;
 
 // dot product of 16 bytes of a shared-memory row with shared floats,
 // each rounded to the row's storage type first
@@ -111,12 +106,6 @@ __device__ __forceinline__ float2 load2(const float* p) {
 }
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ float warp_sum(float a) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
-  return a;
 }
 
 struct Plan {

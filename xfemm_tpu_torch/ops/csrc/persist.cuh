@@ -1,5 +1,6 @@
-// Building blocks of the persistent kernels (bt_qbwd.cu), for Hopper
-// (sm_90a):
+// Building blocks of the persistent kernels of the block-Thomas apply
+// (bt_fwd.cu, the forward sweep; bt_qbwd.cu, the Sinv products and the
+// backward sweep), for Hopper (sm_90a):
 //
 //  - the grid-wide exchange: flagged words, a 4-byte value and a 4-byte
 //    tag stored together as one 8-byte word. A block waits for another's
@@ -14,11 +15,15 @@
 //    readers have released it; both sides walk the ring with a cursor
 //    that carries the stage and its phase parity.
 //
+//  - two small helpers of the sweeps: rounding to the factor's storage
+//    type, and a warp's sum in a fixed shuffle order.
+//
 // A wait that has not finished after WAIT_LIMIT_NS traps, so that a
 // fault shows as a failed launch and not as a hung card.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -136,6 +141,26 @@ __device__ __forceinline__ void ring_wait(uint64_t* bar, unsigned parity) {
   const unsigned long long t0 = now_ns();
   while (!ring_try(b, parity))
     if (now_ns() - t0 > WAIT_LIMIT_NS) __trap();
+}
+
+// ---------------------------------------------------------------------
+// helpers of the sweeps
+// ---------------------------------------------------------------------
+
+// v rounded to the storage type T of the factor, as a float
+template <typename T> __device__ __forceinline__ float round_to(float v);
+template <> __device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// the sum of a over the warp, the same bits on every lane and every call
+__device__ __forceinline__ float warp_sum(float a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+  return a;
 }
 
 }  // namespace persist

@@ -9,26 +9,28 @@ wrapper    source                      replaces (TPU kernel of the JAX package)
 =========  ==========================  =====================================
 band_mv    csrc/band_mv.cu             pallas_band.py::_band_mv_call
 band_sym   csrc/band_sym.cu            pallas_band.py::_band_sym_call
-bt_fwd     csrc/bt_sweep.cu            blocktri.py::_bt_apply_pallas fwd_kernel
+bt_fwd     csrc/bt_fwd.cu              blocktri.py::_bt_apply_pallas fwd_kernel
 bt_qbwd    csrc/bt_qbwd.cu             blocktri.py::_bt_apply_pallas q_kernel
                                        and bwd_kernel
 =========  ==========================  =====================================
 
-The forward sweep runs as one grid launch per block step; the Sinv
-product and the backward sweep run as ONE persistent cooperative launch
-(one exchange of flagged words between its blocks per step, on
-``csrc/persist.cuh``), planned in Python by ``_qbwd_plan``. Each source is compiled by ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface under the package's
-``_build/`` directory (first use; keyed by a hash of the source, the
-shared headers and the flags) and bound with ``ctypes``. Kernels launch
+The forward sweep, and the Sinv product with the backward sweep, each
+run as ONE persistent cooperative launch with one exchange of flagged
+words between its blocks per block step (``csrc/persist.cuh``): an
+all-gather of y_{t-1} in the forward sweep, a reduce of G^T z partials
+in the backward one. Their row splits and shared-memory rings are
+planned in Python (``_fwd_plan``, ``_qbwd_plan``). Each source is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain
+C interface under the package's ``_build/`` directory (first use; keyed
+by a hash of the source, the shared headers and the flags) and bound
+with ``ctypes``. Kernels launch
 on PyTorch's current stream and allocate nothing; the wrappers allocate
 the outputs and scratch.
 
 A wrapper given CPU tensors runs the plain version (the CPU tests and
 the CPU solve path); given CUDA tensors it launches its kernel or
 raises -- it never falls back. ``LAUNCHES`` counts the wrapper calls
-that launched a kernel (a forward sweep enqueues NB-1 step grids and
-counts once; band_sym's two passes count once).
+that launched a kernel (band_sym's two passes count once).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ import torch
 _CSRC = pathlib.Path(__file__).parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "_build"
 SOURCES = {"band_mv": "band_mv.cu", "band_sym": "band_sym.cu",
-           "bt_sweep": "bt_sweep.cu", "bt_qbwd": "bt_qbwd.cu"}
+           "bt_fwd": "bt_fwd.cu", "bt_qbwd": "bt_qbwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
@@ -122,7 +124,8 @@ _SIGS = {
     "band_mv": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR],
     "band_sym": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                  _INT, _INT, _PTR],
-    "bt_fwd": [_PTR, _PTR, _PTR, _INT, _INT, _PTR],
+    "bt_fwd": [_PTR] * 4 + [_INT] * 9 + [_PTR, _PTR],
+    "bt_fwd_occupancy": [_INT],
     "bt_qbwd": [_PTR] * 5 + [_INT] * 8 + [_PTR, _PTR],
     "bt_qbwd_occupancy": [_INT, _INT],
 }
@@ -355,45 +358,26 @@ def bt_qbwd_plain(Sinv: torch.Tensor, G: torch.Tensor,
     return bt_bwd_plain(G, bt_q_plain(Sinv, y))
 
 
-def bt_fwd(G: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """Forward block-Thomas sweep (K2) over (NB, b) blocks."""
-    if not r.is_cuda:
-        return bt_fwd_plain(G, r)
-    NB, b = r.shape
-    if r.dtype != torch.float32:
-        raise ValueError("bt_fwd: vector must be float32")
-    if G.shape[1:] != (b, b) or G.shape[0] != NB - 1 and NB > 1:
-        raise ValueError(f"bt_fwd: G {tuple(G.shape)} does not hold the "
-                         f"NB-1 blocks of r ({NB}, {b})")
-    _check("bt_fwd", G, r)
-    y = torch.empty_like(r)
-    with torch.cuda.device(r.device):
-        rc = _fn("bt_sweep", "bt_fwd", G.dtype)(
-            G.data_ptr(), r.data_ptr(), y.data_ptr(), NB, b, _stream(r))
-    _raise_on(rc, "bt_fwd")
-    LAUNCHES["bt_fwd"] += 1
-    return y
-
-
-#: bt_qbwd's reader threads, columns per reader thread, rows per warp,
-#: grid and ring limits, and its mbarrier area (csrc/bt_qbwd.cu THREADS,
-#: 8, MAXR, MAX_BLOCKS, MAX_STAGES, BAR_BYTES)
-_QB_THREADS = 256
-_QB_MAX_COLS = 8
-_QB_MAX_ROWS = 2
-_QB_MAX_BLOCKS = 160
-_QB_MAX_STAGES = 32
-_QB_BAR_BYTES = 1024
+#: the persistent sweeps' (csrc/bt_fwd.cu, csrc/bt_qbwd.cu) compute
+#: threads, columns or polled words per compute thread, rows per warp,
+#: grid and ring limits, and their mbarrier area (THREADS, 8 / MAXW,
+#: MAXR, MAX_BLOCKS, MAX_STAGES, BAR_BYTES)
+_PK_THREADS = 256
+_PK_MAX_COLS = 8
+_PK_MAX_ROWS = 2
+_PK_MAX_BLOCKS = 160
+_PK_MAX_STAGES = 32
+_PK_BAR_BYTES = 1024
 #: dynamic shared memory one block may use on Hopper (227 KB)
 SMEM_LIMIT = 232_448
 #: the ring takes the largest stage that still leaves this many stages
-_QB_MIN_STAGES = 4
+_PK_MIN_STAGES = 4
 
 
-class QbwdPlan(NamedTuple):
-    """Grid and shared-memory ring of one bt_qbwd launch."""
+class SweepPlan(NamedTuple):
+    """Grid and shared-memory ring of one bt_fwd or bt_qbwd launch."""
     blocks: int       # grid size, at most one block per SM
-    rows: int         # rows of every G_t and Sinv_t a block owns (the
+    rows: int         # rows of every G_t (and Sinv_t) a block owns (the
                       # last block: what is left, at least one)
     stage_rows: int   # rows one ring stage holds
     chunks: int       # chunks a block's rows of one matrix stream in
@@ -401,41 +385,130 @@ class QbwdPlan(NamedTuple):
     smem_bytes: int   # dynamic shared memory of one block
 
 
+def _sweep_plan(name: str, b: int, n_sm: int, smem) -> SweepPlan:
+    """Row split and ring of a persistent sweep for block size ``b`` on a
+    card of ``n_sm`` SMs: the fewest rows per block that spread b rows
+    over at most n_sm blocks, then the fewest chunks per matrix and block
+    step that leave _PK_MIN_STAGES stages. ``smem(rows, blocks,
+    stage_rows, stages)`` is the kernel's shared memory per block."""
+    if b <= 0 or b % 8 or b > _PK_THREADS * _PK_MAX_COLS:
+        raise ValueError(f"{name}: block size {b} must be a multiple of 8 "
+                         f"up to {_PK_THREADS * _PK_MAX_COLS}")
+    rows = -(-b // n_sm)
+    blocks = -(-b // rows)
+    if rows > _PK_THREADS // 32 * _PK_MAX_ROWS or blocks > _PK_MAX_BLOCKS:
+        raise ValueError(f"{name}: b={b} does not split over {n_sm} SMs")
+    for chunks in range(1, rows + 1):
+        stage_rows = -(-rows // chunks)
+        base = smem(rows, blocks, stage_rows, 0)
+        per_stage = smem(rows, blocks, stage_rows, 1) - base
+        stages = min(_PK_MAX_STAGES, (SMEM_LIMIT - base) // per_stage)
+        if stages >= _PK_MIN_STAGES or stage_rows == 1:
+            break
+    if stages < max(2, chunks):
+        raise ValueError(f"{name}: b={b} leaves no room for a ring")
+    return SweepPlan(blocks=blocks, rows=rows, stage_rows=stage_rows,
+                     chunks=chunks, stages=stages,
+                     smem_bytes=smem(rows, blocks, stage_rows, stages))
+
+
+def _fwd_smem(b: int, item: int, stage_rows: int, stages: int) -> int:
+    """Shared memory of one bt_fwd block (csrc/bt_fwd.cu smem_need):
+    mbarriers, the ring (each stage: stage_rows rows of G_t), and y^ in
+    two buffers."""
+    return _PK_BAR_BYTES + stages * stage_rows * b * item + 2 * 4 * b
+
+
+def _fwd_plan(b: int, dtype: torch.dtype, n_sm: int) -> SweepPlan:
+    """Row split and ring plan of bt_fwd: the row split of bt_qbwd, one
+    matrix streamed per step (at b=2048 in f32 a block's 16 rows, 128
+    KB, stream in 3 chunks)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return _sweep_plan("bt_fwd", b, n_sm,
+                       lambda rows, blocks, sr, st: _fwd_smem(b, item, sr,
+                                                              st))
+
+
+#: copies of bt_fwd's exchange scratch: every row is published to all of
+#: them, block k polls copy k % _FWD_COPIES
+_FWD_COPIES = 4
+
+
+def fwd_blocks_per_sm(dtype: torch.dtype, smem_bytes: int) -> int:
+    """Blocks of bt_fwd resident on one SM at ``smem_bytes`` of shared
+    memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = _fn("bt_fwd", "bt_fwd_occupancy", dtype)(smem_bytes)
+    _raise_on(max(0, -n), "bt_fwd occupancy")
+    return n
+
+
+#: the points of a step bt_fwd's trace records, in order (clock64 of the
+#: first thread of the first and the last block; "own words in": that
+#: thread's share of the step's polled words; the named barrier after it
+#: defers its wait past the "all words in" clock, so the wait for the rest
+#: of the block's words shows up before the next step's "start")
+FWD_TRACE_POINTS = ("start", "G stage in", "row published", "own words in",
+                    "all words in")
+
+
+def bt_fwd(G: torch.Tensor, r: torch.Tensor,
+           trace: torch.Tensor | None = None) -> torch.Tensor:
+    """Forward block-Thomas sweep (K2) over (NB, b) blocks: y_0 = r_0,
+    y_t = r_t - G_{t-1} y^_{t-1}, in one persistent cooperative launch.
+    Raises if the card refuses the launch (every block must be resident).
+    ``trace``, an int64 (2, NB, 5) CUDA tensor, receives the clock at
+    FWD_TRACE_POINTS of every step in the first and the last block."""
+    if not r.is_cuda:
+        return bt_fwd_plain(G, r)
+    NB, b = r.shape
+    if r.dtype != torch.float32:
+        raise ValueError("bt_fwd: vector must be float32")
+    if G.shape != (NB - 1, b, b):
+        raise ValueError(f"bt_fwd: G {tuple(G.shape)} does not hold the "
+                         f"NB-1 blocks of r ({NB}, {b})")
+    _check("bt_fwd", G, r, *(() if trace is None else (trace,)))
+    if any(t.data_ptr() % 16 for t in (G, r)):
+        raise ValueError("bt_fwd: tensors must be 16-byte aligned")
+    npts = len(FWD_TRACE_POINTS)
+    if trace is not None and (trace.dtype != torch.int64
+                              or trace.shape != (2, NB, npts)):
+        raise ValueError(f"bt_fwd: trace must be an int64 (2, NB, {npts}) "
+                         "tensor")
+    plan = _fwd_plan(b, G.dtype, torch.cuda.get_device_properties(r.device)
+                     .multi_processor_count)
+    y = torch.empty_like(r)
+    # the exchange: 2 step slots x _FWD_COPIES copies of b 8-byte words
+    work = torch.empty(2 * _FWD_COPIES * 2 * b, dtype=torch.float32,
+                       device=r.device)
+    with torch.cuda.device(r.device):
+        rc = _fn("bt_fwd", "bt_fwd", G.dtype)(
+            G.data_ptr(), r.data_ptr(), y.data_ptr(), work.data_ptr(), NB,
+            b, plan.rows, plan.stage_rows, plan.chunks, plan.stages,
+            _FWD_COPIES, plan.blocks, plan.smem_bytes,
+            0 if trace is None else trace.data_ptr(), _stream(r))
+    _raise_on(rc, "bt_fwd")
+    LAUNCHES["bt_fwd"] += 1
+    return y
+
+
 def _qbwd_smem(b: int, item: int, rows: int, blocks: int, stage_rows: int,
                stages: int) -> int:
     """Shared memory of one block (csrc/bt_qbwd.cu smem_need): mbarriers,
-    the ring (each stage: stage_rows rows, and y_t), the block's z^ for
-    two steps, and one step's partials of its rows from every block."""
-    return (_QB_BAR_BYTES + stages * (stage_rows * b * item + 4 * b)
+    the ring (each stage: stage_rows rows of one matrix, and y_t), the
+    block's z^ for two steps, and one step's partials of its rows from
+    every block."""
+    return (_PK_BAR_BYTES + stages * (stage_rows * b * item + 4 * b)
             + 4 * (2 * rows + blocks * rows))
 
 
-def _qbwd_plan(b: int, dtype: torch.dtype, n_sm: int) -> QbwdPlan:
-    """Row split and ring plan of bt_qbwd for block size ``b``, factor
-    storage ``dtype`` and a card of ``n_sm`` SMs: the fewest rows per
-    block that spread b rows over at most n_sm blocks, then the fewest
-    chunks per block step that leave _QB_MIN_STAGES stages (at b=2048 in
-    f32 a block's 16 rows of one matrix, 128 KB, stream in 4 chunks)."""
-    if b <= 0 or b % 8 or b > _QB_THREADS * _QB_MAX_COLS:
-        raise ValueError(f"bt_qbwd: block size {b} must be a multiple of 8 "
-                         f"up to {_QB_THREADS * _QB_MAX_COLS}")
+def _qbwd_plan(b: int, dtype: torch.dtype, n_sm: int) -> SweepPlan:
+    """Row split and ring plan of bt_qbwd: two matrices (Sinv_t with y_t,
+    G_{t-1}) streamed per step (at b=2048 in f32 a block's 16 rows of
+    one matrix, 128 KB, stream in 4 chunks)."""
     item = torch.empty((), dtype=dtype).element_size()
-    rows = -(-b // n_sm)
-    blocks = -(-b // rows)
-    if rows > _QB_THREADS // 32 * _QB_MAX_ROWS or blocks > _QB_MAX_BLOCKS:
-        raise ValueError(f"bt_qbwd: b={b} does not split over {n_sm} SMs")
-    for chunks in range(1, rows + 1):
-        stage_rows = -(-rows // chunks)
-        free = SMEM_LIMIT - _qbwd_smem(b, item, rows, blocks, stage_rows, 0)
-        stages = min(_QB_MAX_STAGES, free // (stage_rows * b * item + 4 * b))
-        if stages >= _QB_MIN_STAGES or stage_rows == 1:
-            break
-    if stages < max(2, chunks):
-        raise ValueError(f"bt_qbwd: b={b} leaves no room for a ring")
-    return QbwdPlan(blocks=blocks, rows=rows, stage_rows=stage_rows,
-                    chunks=chunks, stages=stages,
-                    smem_bytes=_qbwd_smem(b, item, rows, blocks, stage_rows,
-                                          stages))
+    return _sweep_plan("bt_qbwd", b, n_sm,
+                       lambda rows, blocks, sr, st: _qbwd_smem(
+                           b, item, rows, blocks, sr, st))
 
 
 def qbwd_blocks_per_sm(b: int, dtype: torch.dtype, smem_bytes: int) -> int:
