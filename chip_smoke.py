@@ -21,19 +21,27 @@ Phases (any failure exits non-zero, with no result line):
 3. the 250k path (slice 1): ``benchprob.build(250_000)``, the port's
    mesher (npz cache under .bench_cache/), ``magnetostatics.solve`` cold
    and warm on the card, counting the kernels' launches; check the
-   residual, the bt-alone regime and the launch counts; time each
-   kernel and its plain version on the path's own band and factor, with
-   the clock cycles per phase of a step of both sweeps (their traces);
-   profile one more warm solve with torch.profiler (device time by
-   kernel, busy share); one cold solve with the fine level alone and
-   one with the full hierarchy (the cost of the bt-alone regime's
-   fine-only build); solve a 10k problem on the card and on the CPU
-   path and compare;
+   residual, the bt-alone regime, the launch counts and that the device
+   Newton loop ran (``newton.run``, not the scatter mode; host passes,
+   device runs and steps, CG iterations in each and the "device newton"
+   seconds printed per solve); the same cold and warm solves on the host
+   Newton chain (``XFEMM_TPU_NO_DEVICE_NEWTON=1``), checked the same way
+   and against the loop's A; time each kernel and its plain version on
+   the path's own band and factor, with the clock cycles per phase of a
+   step of both sweeps (their traces), and the loop's delta sidecar
+   (its ``index_add`` per operator apply); profile one more warm solve
+   with torch.profiler (device time by kernel, busy share); one cold
+   solve with the fine level alone and one with the full hierarchy (the
+   cost of the bt-alone regime's fine-only build); solve a 10k problem
+   on the card and on the CPU path and compare;
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
-   bf16 BTSmoother, band-AMG V-cycle), the residual and the launch
-   counts; hold every kernel against its plain version on the live
+   bf16 BTSmoother, band-AMG V-cycle), the residual, the launch counts,
+   that the device Newton loop ran in its scatter mode
+   (``newton.run_scatter``) and refreshed the fine band in place (the
+   same storage throughout; the refresh timed per step); hold every
+   kernel against its plain version on the live
    hierarchy and smoother (each level's K5 or K1 band, bf16 copy and
    prolongator; the sweeps step by step, chained and repeated); time K5
    on the live fine band and the live smoother's bt_fwd and bt_qbwd
@@ -414,34 +422,145 @@ def get_mesh(prob, nodes: int):
     return mesh
 
 
-def main_path(torch, nodes: int):
-    """Two solves of the nonlinear problem on the card; returns the
-    launch counts and what the checks need."""
-    import numpy as np
+class NewtonRecorder:
+    """Records, while active, what a solve did: every host linear solve
+    (``solver.solve``: its CG iterations), every device Newton dispatch
+    (``newton.run`` / ``run_scatter``: steps and CG iterations from its
+    stats), the fine band's storage address at each scatter step, and
+    the device time of each in-place band refresh (CUDA events, read
+    after the solve). It wraps the modules' functions and restores them
+    on exit; the kernels' launch counts are not touched."""
 
+    def __init__(self, torch):
+        self.torch = torch
+        self.host = []          # CG iterations per host pass
+        self.dev = []           # (name, steps, CG its, res, relax)
+        self.ptrs = []          # fine band data_ptr at each scatter step
+        self._events = []       # (start, end) per in-place refresh
+
+    def __enter__(self):
+        from xfemm_tpu_torch.ops import newton, solver
+        self._saved = [(solver, "solve", solver.solve),
+                       (newton, "run", newton.run),
+                       (newton, "run_scatter", newton.run_scatter),
+                       (newton, "_scatter_refresh", newton._scatter_refresh)]
+        torch = self.torch
+        real = {name: fn for _m, name, fn in self._saved}
+
+        def solve(*a, **kw):
+            out = real["solve"](*a, **kw)
+            self.host.append(int(out[2]))
+            return out
+
+        def loop(name):
+            def wrapped(dn, amg, *a, **kw):
+                if name == "run_scatter":
+                    self.ptrs.append(amg.levels[0].A.dense.data_ptr())
+                out = real[name](dn, amg, *a, **kw)
+                st = out[-1].tolist()
+                self.dev.append((name, int(st[3]), int(st[4]), st[1],
+                                 st[0]))
+                return out
+            return wrapped
+
+        def refresh(*a, **kw):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = real["_scatter_refresh"](*a, **kw)
+            ev[1].record()
+            self._events.append(ev)
+            return out
+
+        solver.solve = solve
+        newton.run = loop("run")
+        newton.run_scatter = loop("run_scatter")
+        newton._scatter_refresh = refresh
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def refresh_ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self._events]
+
+    def summary(self, profiling) -> str:
+        steps = sum(d[1] for d in self.dev)
+        out = (f"host passes {len(self.host)} ({sum(self.host)} CG "
+               f"iterations), device runs {len(self.dev)} "
+               f"({', '.join(sorted({d[0] for d in self.dev})) or 'none'}; "
+               f"{steps} steps, {sum(d[2] for d in self.dev)} CG "
+               f"iterations)")
+        if profiling.ENABLED:
+            out += (f", device newton "
+                    f"{profiling.phase_seconds('device newton'):.3f} s")
+        return out
+
+
+def main_path(torch, nodes: int):
+    """Two solves of the nonlinear problem on the card (the device
+    Newton loop); returns the launch counts and what the checks need."""
     from xfemm_tpu_torch.models import benchprob, magnetostatics
     from xfemm_tpu_torch.ops import kernels, solver
-    from xfemm_tpu_torch.utils import profiling
 
     t0 = time.time()
     prob = benchprob.build(nodes)
     mesh = get_mesh(prob, nodes)
     print(f"mesh: {mesh.num_nodes} nodes, {mesh.num_elements} elements "
           f"({time.time() - t0:.1f} s incl. cache)", flush=True)
+    sols, launches, state = solve_twice(torch, prob, mesh, "device loop")
+    band = state["band_amg"].levels[0].A
+    bt = state["bt"]
+    b, NB = state["bt_shape"]
+    print(f"regime: band {tuple(band.dense.shape)} {band.dense.dtype} "
+          f"shift0={band.shift0}, block-tridiagonal factor b={b} NB={NB}; "
+          f"bt_fwd {describe_fwd_plan(kernels, torch, b, bt.G.dtype)}; "
+          f"bt_qbwd {describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
+          flush=True)
+    extra = next(iter(magnetostatics._PACK_CACHE.values()))[2]
+    dn = extra[("dn", str(solver.resolve_device()))][0]
+    return launches, band, bt, dn, prob, mesh, sols
+
+
+def solve_twice(torch, prob, mesh, chain: str):
+    """A cold and a warm solve of the 250k problem on the card, the
+    kernels' launches counted from 0 over both; checks the result, the
+    bt-alone regime, the launch counts and which Newton chain ran
+    ("device loop": ``newton.run`` with at least one device step and no
+    scatter step; "host chain": no loop call). Returns (solutions,
+    launches, band cache entry)."""
+    import numpy as np
+
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import blocktri, kernels, solver
+    from xfemm_tpu_torch.utils import profiling
+
     profiling.ENABLED = True
     kernels.reset_launches()
     sols = []
     for label in ("cold", "warm"):
         profiling.reset()
-        t0 = time.time()
-        sol = magnetostatics.solve(prob, mesh)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
+        with NewtonRecorder(torch) as rec:
+            t0 = time.time()
+            sol = magnetostatics.solve(prob, mesh)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
         sols.append(sol)
-        print(f"{label} solve: {dt:.3f} s, Newton iterations "
+        print(f"{chain}, {label} solve: {dt:.3f} s, Newton iterations "
               f"{sol.newton_iterations}, CG iterations {sol.iterations}, "
-              f"residual {sol.residual:.3e}", flush=True)
+              f"residual {sol.residual:.3e}; {rec.summary(profiling)}",
+              flush=True)
         print(profiling.report(), flush=True)
+        names = {d[0] for d in rec.dev}
+        if chain == "device loop" and not (
+                names == {"run"} and sum(d[1] for d in rec.dev) >= 1):
+            fail(f"the {label} solve did not run the device Newton loop "
+                 f"(newton.run, no scatter step): {rec.dev}")
+        if chain == "host chain" and rec.dev:
+            fail(f"the host-chain {label} solve called the device loop")
     launches = dict(kernels.LAUNCHES)
     profiling.ENABLED = False
     for sol in sols:
@@ -451,25 +570,90 @@ def main_path(torch, nodes: int):
             fail("A is not a finite per-node vector")
     cg = sum(s.iterations for s in sols)
     state = next(iter(solver._BAND_CACHE.values()))
-    band = state["band_amg"].levels[0].A
-    bt = state["bt"]
-    b, NB = state["bt_shape"]
-    print(f"regime: band {tuple(band.dense.shape)} {band.dense.dtype} "
-          f"shift0={band.shift0}, block-tridiagonal factor b={b} NB={NB}; "
-          f"bt_fwd {describe_fwd_plan(kernels, torch, b, bt.G.dtype)}; "
-          f"bt_qbwd {describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
-          flush=True)
-    print(f"launches over both solves: {launches}; CG iterations {cg}",
-          flush=True)
+    if not (type(state["bt"]) is blocktri.BTFactor
+            and len(state["band_amg"].levels) == 1):
+        fail(f"the planner left the bt-alone regime: plan {state['plan']}")
+    print(f"{chain}: launches over both solves: {launches}; CG iterations "
+          f"{cg}", flush=True)
     if not (launches["bt_fwd"] == launches["bt_qbwd"] >= cg > 0
             and launches["band_mv"] >= cg):
         fail("a kernel of the main path was launched less than once per "
              "CG iteration")
     dA = float(abs(sols[0].A - sols[1].A).max() / abs(sols[0].A).max())
-    print(f"cold vs warm solution: max rel diff {dA:.3e}", flush=True)
+    print(f"{chain}: cold vs warm solution: max rel diff {dA:.3e}",
+          flush=True)
     if not dA <= 1e-5:
         fail("cold and warm solves disagree")
-    return launches, band, bt, prob, mesh
+    return sols, launches, state
+
+
+def host_chain(torch, prob, mesh, loop_sols):
+    """The 250k cold and warm solves again on the host Newton chain
+    (``XFEMM_TPU_NO_DEVICE_NEWTON=1``, from empty caches), checked as
+    the device loop's and against its A. Returns the launch counts."""
+    clear_solver_caches(torch)
+    os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
+    try:
+        sols, launches, _state = solve_twice(torch, prob, mesh,
+                                             "host chain")
+        profile_solve(torch, prob, mesh, "host chain")
+    finally:
+        del os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"]
+        clear_solver_caches(torch)
+    ref = loop_sols[0].A
+    dA = max(float(abs(s.A - ref).max() / abs(ref).max()) for s in sols)
+    print(f"host chain vs device loop solutions: max rel diff {dA:.3e}",
+          flush=True)
+    if not dA <= 1e-5:
+        fail("the host chain and the device loop disagree")
+    return launches
+
+
+def warm_pairs(torch, prob, mesh, pairs: int = 10) -> None:
+    """Warm 250k solves in turns, host chain then device loop, on the
+    same cached session: wall time of each (host clock ending in a
+    synchronize) and the medians."""
+    from xfemm_tpu_torch.models import magnetostatics
+    times = {"host chain": [], "device loop": []}
+    for _ in range(pairs):
+        for chain in ("host chain", "device loop"):
+            if chain == "host chain":
+                os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
+            try:
+                t0 = time.time()
+                magnetostatics.solve(prob, mesh)
+                torch.cuda.synchronize()
+                times[chain].append(time.time() - t0)
+            finally:
+                os.environ.pop("XFEMM_TPU_NO_DEVICE_NEWTON", None)
+    for chain, ts in times.items():
+        print(f"warm 250k solves in turns, {chain}: "
+              f"{', '.join(f'{t:.3f}' for t in ts)} s; median "
+              f"{statistics.median(ts):.3f} s", flush=True)
+
+
+def sidecar_cost(torch, band, dn) -> None:
+    """What ``newton.run``'s delta sidecar adds to each operator apply
+    on the 250k band: its ``index_add`` alone, and K1 with and without
+    it (CUDA events, medians)."""
+    from xfemm_tpu_torch.ops import band as band_mod
+    from xfemm_tpu_torch.ops import kernels
+    dev = band.dense.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    x = torch.randn(band.ncols, generator=gen, device=dev)
+    m = dn.delta_rows.numel()
+    side = band_mod.Sidecar(dn.delta_rows, dn.delta_cols,
+                            torch.randn(m, generator=gen, device=dev))
+    y = torch.zeros(band.ncols, device=dev)
+    t_ia = median_ms(lambda: y.index_add(0, side.rows,
+                                         side.vals * x[side.cols]))
+    t_k1 = median_ms(lambda: kernels.band_mv(band.dense, x, band.shift0,
+                                             band.cchunk, band.ncols))
+    t_both = median_ms(lambda: band_mod.band_apply(band, None, x, side))
+    print(f"delta sidecar of newton.run: {m} entries, index_add "
+          f"{t_ia:.4f} ms per operator apply; K1 {t_k1:.4f} ms alone, "
+          f"band_apply with the sidecar {t_both:.4f} ms", flush=True)
 
 
 def measure_on_main_path(torch, band, bt):
@@ -528,7 +712,7 @@ def measure_on_main_path(torch, band, bt):
     return rows
 
 
-def profile_solve(torch, prob, mesh) -> None:
+def profile_solve(torch, prob, mesh, chain: str = "device loop") -> None:
     """One more warm solve under torch.profiler: device time by kernel
     and the device's busy share of the solve's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -543,7 +727,7 @@ def profile_solve(torch, prob, mesh) -> None:
     dev_events = [e for e in prof.key_averages()
                   if str(e.device_type).endswith("CUDA")]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e6
-    print(f"profiled warm solve: {wall:.3f} s wall, device busy "
+    print(f"profiled warm solve ({chain}): {wall:.3f} s wall, device busy "
           f"{busy:.3f} s ({100.0 * busy / wall:.1f}%)", flush=True)
     for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<6d} "
@@ -610,16 +794,20 @@ def hierarchy_cost(torch, mesh) -> None:
 
 
 def small_path(torch):
-    """Slice 1's main path (250k, bt-alone) and its measurements; returns
-    the kernel rows and that path's launch counts."""
-    launches, band, bt, prob, mesh = main_path(torch, NODES)
+    """Slice 1's main path (250k, bt-alone) on the device loop and on
+    the host chain, and its measurements; returns the kernel rows and
+    the launch counts of both paths."""
+    launches, band, bt, dn, prob, mesh, sols = main_path(torch, NODES)
     rows = measure_on_main_path(torch, band, bt)
-    del band, bt
+    sidecar_cost(torch, band, dn)
+    del band, bt, dn
     profile_solve(torch, prob, mesh)
+    warm_pairs(torch, prob, mesh)
+    host_launches = host_chain(torch, prob, mesh, sols)
     hierarchy_cost(torch, mesh)
     small_reference(torch, 10_000)
     clear_solver_caches(torch)
-    return rows, launches
+    return rows, [launches, host_launches]
 
 
 def clear_solver_caches(torch) -> None:
@@ -655,10 +843,15 @@ def large_path(torch, nodes: int):
     solver.TRACE = True           # one line per band CG pass
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    t0 = time.time()
-    sol = magnetostatics.solve(prob, mesh)
-    torch.cuda.synchronize()
-    dt = time.time() - t0
+    os.environ["XFEMM_TPU_NEWTON_DEBUG"] = "1"   # one line per iteration
+    try:
+        with NewtonRecorder(torch) as rec:
+            t0 = time.time()
+            sol = magnetostatics.solve(prob, mesh)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+    finally:
+        del os.environ["XFEMM_TPU_NEWTON_DEBUG"]
     launches = dict(kernels.LAUNCHES)
     profiling.ENABLED = False
     solver.TRACE = False
@@ -666,11 +859,22 @@ def large_path(torch, nodes: int):
     print(f"large cold solve: {dt:.3f} s, Newton iterations "
           f"{sol.newton_iterations}, CG iterations {sol.iterations}, "
           f"residual {sol.residual:.3e}, peak device memory "
-          f"{peak / 1e9:.2f} GB", flush=True)
+          f"{peak / 1e9:.2f} GB (38.25 GB on the host chain of the "
+          f"same plan, H100 80GB); {rec.summary(profiling)}",
+          flush=True)
+    print("  device steps (scatter; CG iterations, displacement res, "
+          "relax): " + ", ".join(f"({d[2]}, {d[3]:.3e}, {d[4]:.3f})"
+                                 for d in rec.dev)
+          + f"; host passes: CG iterations {rec.host}", flush=True)
     print(profiling.report(), flush=True)
     cg_s = profiling.phase_seconds("device cg")
-    print(f"large solve device cg {cg_s:.3f} s over {sol.iterations} CG "
-          f"iterations: {1e3 * cg_s / max(sol.iterations, 1):.3f} ms per "
+    dn_s = profiling.phase_seconds("device newton")
+    host_cg = max(sum(rec.host), 1)
+    loop_cg = max(sum(d[2] for d in rec.dev), 1)
+    print(f"large solve device cg {cg_s:.3f} s over the host passes' "
+          f"{sum(rec.host)} CG iterations: {1e3 * cg_s / host_cg:.3f} ms per "
+          f"iteration; device newton {dn_s:.3f} s over the loop's "
+          f"{loop_cg} CG iterations: {1e3 * dn_s / loop_cg:.3f} ms per "
           f"iteration", flush=True)
     state = next(iter(solver._BAND_CACHE.values()))
     amg, bt = state["band_amg"], state["bt"]
@@ -694,6 +898,19 @@ def large_path(torch, nodes: int):
           f"{type(bt).__name__} b={b} NB={NB} "
           f"{None if bt is None else str(bt.Sinv.dtype)[6:]}", flush=True)
     print(f"large path launches: {launches}", flush=True)
+    refresh = rec.refresh_ms()
+    band_ptr = lv0.A.dense.data_ptr()
+    print(f"in-place band refresh (newton._scatter_refresh) per step: "
+          f"median {statistics.median(refresh) if refresh else 0.0:.3f} ms "
+          f"over {len(refresh)} steps; fine band storage "
+          f"{'unchanged' if set(rec.ptrs) == {band_ptr} else 'MOVED'} "
+          f"across the run", flush=True)
+    if not ({d[0] for d in rec.dev} == {"run_scatter"}
+            and sum(d[1] for d in rec.dev) >= 1):
+        fail(f"the large solve did not run the device Newton loop in its "
+             f"scatter mode: {rec.dev}")
+    if set(rec.ptrs) != {band_ptr}:
+        fail("the fine band moved during the device Newton loop (a copy)")
     if not (state["partitioned"] and lv0.dvec is not None
             and lv0.A.dense.dtype == torch.float32
             and isinstance(bt, blocktri.BTSmoother)
@@ -879,7 +1096,10 @@ def small_vcycle(torch) -> None:
     prolongator make this V-cycle non-symmetric (printed: its symmetry
     defect as built and with those bands in f32), so CG stalls near 3e-4
     in each pass, and where a pass ends then turns on the fp32 summation
-    order (printed: the CPU path's count at one torch thread)."""
+    order (printed: the CPU path's count at one torch thread). These
+    solves run the host Newton chain (``XFEMM_TPU_NO_DEVICE_NEWTON=1``),
+    as the bound was set on it; ``small_vcycle_loop`` holds the device
+    loop on the same plan."""
     from xfemm_tpu_torch.geometry import femfile
     from xfemm_tpu_torch.mesh.meshdata import read_mesh_files
     from xfemm_tpu_torch.models import magnetostatics
@@ -888,9 +1108,10 @@ def small_vcycle(torch) -> None:
     fx = os.path.join(HERE, "tests", "fixtures")
     old = band.SYM_MIN_BYTES
     band.SYM_MIN_BYTES = 0
-    print("small V-cycle check: band.SYM_MIN_BYTES set to 0 (triu storage "
-          "of the 70 MB Temp band)", flush=True)
+    print("small V-cycle check (host chain): band.SYM_MIN_BYTES set to 0 "
+          "(triu storage of the 70 MB Temp band)", flush=True)
     threads = torch.get_num_threads()
+    os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
     try:
         clear_solver_caches(torch)
         mesh = read_mesh_files(os.path.join(fx, "Temp"))
@@ -935,7 +1156,61 @@ def small_vcycle(torch) -> None:
               f"iterations {one.iterations}, residual {one.residual:.2e}",
               flush=True)
     finally:
+        del os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"]
         torch.set_num_threads(threads)
+        band.SYM_MIN_BYTES = old
+        clear_solver_caches(torch)
+
+
+def small_vcycle_loop(torch) -> None:
+    """The device Newton loop on the triu V-cycle plan of
+    ``small_vcycle`` (``newton.run``: the delta sidecar over a triu band,
+    inner V-cycle PCG), card against CPU, cold and again: both engage
+    the loop, reach the contract residual and agree on A within TOL. The
+    CG counts are printed, not bounded: on this non-symmetric V-cycle
+    each of the loop's inner solves stalls near its f32 floor, where the
+    count follows the rounding (the CPU path itself takes 391 to 570 by
+    its thread count; tests/test_torch_newton_solve.py)."""
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.mesh.meshdata import read_mesh_files
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import band
+    from xfemm_tpu_torch.utils import profiling
+
+    fx = os.path.join(HERE, "tests", "fixtures")
+    old = band.SYM_MIN_BYTES
+    band.SYM_MIN_BYTES = 0
+    os.environ["XFEMM_TPU_NEWTON_DEBUG"] = "1"   # one line per iteration
+    try:
+        clear_solver_caches(torch)
+        mesh = read_mesh_files(os.path.join(fx, "Temp"))
+        sols = {}
+        for dev in ("cuda", "cpu"):
+            prob = femfile.load(os.path.join(fx, "Temp.fem"))
+            sols[dev] = []
+            for label in ("cold", "again"):
+                with NewtonRecorder(torch) as rec:
+                    sol = magnetostatics.solve(prob, mesh, device=dev,
+                                               hbm_bytes=1.5e8)
+                sols[dev].append(sol)
+                print(f"small V-cycle, device loop, {dev} {label}: CG "
+                      f"iterations {sol.iterations}, residual "
+                      f"{sol.residual:.2e}; {rec.summary(profiling)}; per "
+                      f"run (steps, CG): {[d[1:3] for d in rec.dev]}",
+                      flush=True)
+                if not rec.dev or sol.residual > 1e-8:
+                    fail("the triu V-cycle solve did not run the device "
+                         "loop to the contract residual")
+        for k in range(2):
+            a, c = sols["cuda"][k], sols["cpu"][k]
+            d = float(abs(a.A - c.A).max() / abs(c.A).max())
+            print(f"  solve {k + 1}: card vs CPU max rel diff {d:.3e}, CG "
+                  f"iterations {a.iterations} / {c.iterations}", flush=True)
+            if not d <= TOL:
+                fail("card and CPU path disagree on the triu V-cycle solve "
+                     "with the device loop")
+    finally:
+        del os.environ["XFEMM_TPU_NEWTON_DEBUG"]
         band.SYM_MIN_BYTES = old
         clear_solver_caches(torch)
 
@@ -973,7 +1248,7 @@ def main() -> None:
     if args.kernels_only:
         print("--kernels-only: stopping after the kernel checks", flush=True)
         return
-    rows, launches = [], {}
+    rows, launches = [], []
     if not args.large_only:
         rows, launches = small_path(torch)
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
@@ -983,14 +1258,16 @@ def main() -> None:
     del amg, bt
     clear_solver_caches(torch)
     small_vcycle(torch)
+    small_vcycle_loop(torch)
     if args.large_only:
         print("--large-only: no result line", flush=True)
         return
     out = []
     for r in rows:
         # each main path ran with the counts set to 0 just before it and
-        # read just after; a kernel's launches are the sum over both
-        n_launch = launches[r["name"]] + large_launches[r["name"]]
+        # read just after; a kernel's launches are the sum over them
+        n_launch = sum(p[r["name"]] for p in launches) \
+            + large_launches[r["name"]]
         out.append({"name": r["name"], "route": "cuda",
                     "source": SOURCES[r["name"]],
                     "replaces": REPLACES[r["name"]],
