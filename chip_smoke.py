@@ -34,6 +34,21 @@ Phases (any failure exits non-zero, with no result line):
    solve with the fine level alone and one with the full hierarchy (the
    cost of the bt-alone regime's fine-only build); solve a 10k problem
    on the card and on the CPU path and compare;
+3b. the other planar regimes (slice 6), each through the normal entry
+   points on the card with the kernels' launches counted per path: the
+   device memory sizes H0 (no band storage tier) and H1 (bf16 fine
+   operator) computed on the host by the port's planner for the 250k
+   system and printed; the 250k problem at H0 (ELL-AMG engine, host
+   Newton chain) cold and warm; the ``post/fpproc.py`` mask solve on
+   the 250k mesh without DOF coordinates (element-block Jacobi CG;
+   also on the 10k mesh if it runs past 60 s); a 1,750-node problem
+   (ELL-AMG, at most 4*ROW_TILE_MIN unknowns) on the card and the CPU
+   path; the 250k problem at H1 (bf16 triu fine band, K5; GMRES
+   passes, tolerated stalls, any latch-off) cold and warm, with K5
+   timed on that band; previous-solution inputs at 250k (an exactly
+   linear steel curve solved, written as .ans, chained with PrevType 1
+   and 2 and held to the linear twin at 1e-6). Each 250k solve is held
+   to the default solve's A at 1e-5 and to the contract residual;
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
@@ -807,7 +822,452 @@ def small_path(torch):
     hierarchy_cost(torch, mesh)
     small_reference(torch, 10_000)
     clear_solver_caches(torch)
-    return rows, [launches, host_launches]
+    return rows, {"250k device loop": launches,
+                  "250k host chain": host_launches}, mesh, sols[0].A
+
+
+class PassRecorder:
+    """Records, while active, the engine calls of the linear solves: the
+    ELL-AMG and Jacobi PCG passes (``solver._pcg_amg_impl`` /
+    ``_pcg_impl``), ``band.band_fgmres`` cycles (split into those inside
+    a device Newton run and the host refinement passes), and the
+    solver's trace messages (tolerated bf16 stalls, latch-offs). It
+    wraps the functions and restores them on exit; the fine level of
+    the first GMRES cycle is kept for the kernel timing."""
+
+    def __init__(self):
+        self.amg = []           # CG iterations per ELL-AMG pass
+        self.jacobi = []        # CG iterations per Jacobi pass
+        self.fgmres_loop = 0
+        self.fgmres_host = 0
+        self.messages = []
+        self.lv0 = None
+        self._in_loop = 0
+
+    def __enter__(self):
+        from xfemm_tpu_torch.ops import band, newton, solver
+        self._saved = [(solver, "_pcg_amg_impl", solver._pcg_amg_impl),
+                       (solver, "_pcg_impl", solver._pcg_impl),
+                       (band, "band_fgmres", band.band_fgmres),
+                       (newton, "run", newton.run),
+                       (solver, "_trace", solver._trace)]
+        real = {name: fn for _m, name, fn in self._saved}
+
+        def pcg(name, rec):
+            def wrapped(*a, **kw):
+                out = real[name](*a, **kw)
+                rec.append(int(out[2]))
+                return out
+            return wrapped
+
+        def fgmres(amg, *a, **kw):
+            if self.lv0 is None:
+                self.lv0 = amg.levels[0]
+            if self._in_loop:
+                self.fgmres_loop += 1
+            else:
+                self.fgmres_host += 1
+            return real["band_fgmres"](amg, *a, **kw)
+
+        def run(*a, **kw):
+            self._in_loop += 1
+            try:
+                return real["run"](*a, **kw)
+            finally:
+                self._in_loop -= 1
+
+        def trace(msg):
+            self.messages.append(msg)
+            real["_trace"](msg)
+
+        solver._pcg_amg_impl = pcg("_pcg_amg_impl", self.amg)
+        solver._pcg_impl = pcg("_pcg_impl", self.jacobi)
+        band.band_fgmres = fgmres
+        newton.run = run
+        solver._trace = trace
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def count(self, text: str) -> int:
+        return sum(text in m for m in self.messages)
+
+
+def band_tiers(torch, prob, mesh):
+    """The device memory sizes at which the port's planner, on this host,
+    finds no band storage tier for the 250k system (H0) and picks the
+    bf16 fine operator (H1). Below a few GB the ordering is always the
+    RCB-partitioned one, so the three storage estimates of that ordering
+    (full f32, triu f32, triu bf16; ``plan_band_hierarchy``'s tiers at
+    0.375, 0.69 and 0.5 of the memory size) bound both windows; each
+    choice is confirmed with the planner itself."""
+    import numpy as np
+
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import assembly, band, solver
+
+    pk = magnetostatics.pack(prob, mesh)
+    geom = assembly.tri_geometry(pk.xy, pk.tris)
+    Mx, My, _ = assembly.curl_matrices(geom)
+    blocks = magnetostatics._element_blocks(pk, Mx + My)
+    At = solver.Session().csr_values(blocks, pk.nreduced, pk.fixed_mask)
+    coords = np.zeros((pk.nreduced, 2))
+    coords[pk.ridx] = pk.xy
+
+    def plan(hbm):
+        perm, part, _g = solver.pick_band_order(At, coords, hbm)
+        Ap = At[perm][:, perm].tocsr()
+        Ap.sum_duplicates()
+        return Ap, part, solver.plan_band_hierarchy(Ap, part, hbm)
+
+    Ap, part, _p = plan(2e9)
+    est = [solver._band_bytes_estimate(Ap, band.ROW_TILE, sym, item)
+           for sym, item in ((False, 4), (True, 4), (True, 2))]
+    hi = min(est[0] / 0.375, est[1] / 0.69)
+    h0 = 0.9 * min(hi, est[2] / 0.5)
+    h1 = 0.97 * hi
+    print(f"band tiers of the 250k system (partitioned={part}): estimates "
+          f"full f32 {est[0]:.4e}, triu f32 {est[1]:.4e}, triu bf16 "
+          f"{est[2]:.4e} bytes; no tier below {min(hi, est[2] / 0.5):.4e}, "
+          f"bf16 in [{est[2] / 0.5:.4e}, {hi:.4e}); H0 = {h0:.4e}, "
+          f"H1 = {h1:.4e} bytes", flush=True)
+    if not (part and est[2] / 0.5 < h1):
+        fail("the 250k system has no bf16 window below 2 GB")
+    if plan(h0)[2] is not None:
+        fail(f"the planner found a storage tier at H0 = {h0:.4e}")
+    p1 = plan(h1)[2]
+    if p1 is None or p1["fine_dtype"] != "bf16":
+        fail(f"the planner did not pick the bf16 fine operator at H1 = "
+             f"{h1:.4e}: {p1}")
+    print(f"  plan at H1: {p1}", flush=True)
+    return h0, h1
+
+
+def session_of(device: str):
+    from xfemm_tpu_torch.models import magnetostatics
+    extra = next(iter(magnetostatics._PACK_CACHE.values()))[2]
+    return extra[("sess", device)]
+
+
+def regime_solves(torch, prob, mesh, hbm, label, A_ref):
+    """A cold and a warm 250k solve on the card at the memory size
+    ``hbm``, launches counted from 0 over both; prints time, Newton and
+    CG iterations, ms per host CG iteration, residual and the distance
+    to ``A_ref`` (the default solve), and checks residual and distance.
+    Returns (launches, the two recorders, session)."""
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.utils import profiling
+
+    clear_solver_caches(torch)
+    profiling.ENABLED = True
+    kernels.reset_launches()
+    for k in solver.MASKED:
+        solver.MASKED[k] = 0
+    recs = []
+    try:
+        for phase in ("cold", "warm"):
+            profiling.reset()
+            with NewtonRecorder(torch) as rec, PassRecorder() as prec:
+                t0 = time.time()
+                sol = magnetostatics.solve(prob, mesh, hbm_bytes=hbm)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+            recs.append((rec, prec))
+            cg_s = profiling.phase_seconds("device cg")
+            host_cg = max(sum(rec.host), 1)
+            dA = float(abs(sol.A - A_ref).max() / abs(A_ref).max())
+            print(f"{label}, {phase} solve: {dt:.3f} s, Newton iterations "
+                  f"{sol.newton_iterations}, CG iterations "
+                  f"{sol.iterations}, residual {sol.residual:.3e}; "
+                  f"{rec.summary(profiling)}; device cg {cg_s:.3f} s = "
+                  f"{1e3 * cg_s / host_cg:.3f} ms per host CG iteration; "
+                  f"max|A - A_default| / max|A_default| {dA:.3e}",
+                  flush=True)
+            print(profiling.report(), flush=True)
+            if not sol.residual <= prob.Precision:
+                fail(f"{label}: residual {sol.residual:.3e}")
+            if not dA <= 1e-5:
+                fail(f"{label}: the solution is {dA:.3e} from the default "
+                     f"solve's")
+    finally:
+        profiling.ENABLED = False
+    launches = dict(kernels.LAUNCHES)
+    print(f"{label}: launches over both solves {launches}; masked "
+          f"iterations {dict(solver.MASKED)}", flush=True)
+    return launches, recs, session_of("cuda")
+
+
+def ell_amg_path(torch, prob, mesh, h0, A_ref):
+    """Phase: the 250k problem at H0, where no band storage tier fits:
+    the ELL-AMG engine on the card through the host Newton chain."""
+    launches, recs, sess = regime_solves(torch, prob, mesh, h0,
+                                         "ELL-AMG 250k", A_ref)
+    amg = sess.amg
+    if sess.band_amg is not None or amg is None:
+        fail("the ELL-AMG phase did not run the ELL-AMG engine")
+    if not (amg.coarse_inv.is_cuda and all(
+            lv.ell_vals.is_cuda for lv in amg.levels)):
+        fail("the ELL-AMG hierarchy is not on the card")
+    for phase, (rec, prec) in zip(("cold", "warm"), recs):
+        if rec.dev or prec.jacobi or not prec.amg:
+            fail(f"ELL-AMG {phase}: device loop {rec.dev}, Jacobi "
+                 f"{prec.jacobi}, ELL-AMG passes {prec.amg}")
+        print(f"  ELL-AMG {phase}: passes (CG iterations) {prec.amg}",
+              flush=True)
+    print(f"  levels {[tuple(lv.ell_vals.shape) for lv in amg.levels]}, "
+          f"bottom {tuple(amg.coarse_inv.shape)}", flush=True)
+    return launches
+
+
+def mask_blocks(mesh):
+    """The mask solve of ``post/fpproc.py`` (``make_mask``): the curl
+    matrices Mx + My of the mesh, the nodes of the steel label fixed at
+    1, the other non-air labels' nodes and the outer boundary at 0."""
+    import numpy as np
+
+    from xfemm_tpu_torch.ops import assembly, solver
+    N = mesh.num_nodes
+    tris = mesh.elements
+    lab = mesh.element_labels
+    fixed = np.zeros(N, bool)
+    vals = np.zeros(N)
+    sel = tris[lab == 1].ravel()             # steel (label 1)
+    fixed[sel] = True
+    vals[sel] = 1.0
+    coil = tris[(lab == 2) | (lab == 3)].ravel()
+    coil = coil[vals[coil] != 1.0]
+    fixed[coil] = True
+    edges = np.sort(np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]],
+                                    tris[:, [2, 0]]]), axis=1)
+    uniq, cnt = np.unique(edges, axis=0, return_counts=True)
+    outer = uniq[cnt == 1].ravel()
+    outer = outer[vals[outer] != 1.0]
+    fixed[outer] = True
+    geom = assembly.tri_geometry(mesh.nodes, tris)
+    Mx, My, _ = assembly.curl_matrices(geom)
+    blk = solver.ElementBlock(idx=tris, sign=np.ones(tris.shape),
+                              mat=-(Mx + My))
+    return [blk], fixed, vals
+
+
+def jacobi_solve(torch, mesh, label):
+    """One mask solve without DOF coordinates (element-block Jacobi CG)
+    on the card; checks the residual, independently on the host, and
+    the maximum principle. Returns (seconds, launches)."""
+    import numpy as np
+
+    from xfemm_tpu_torch.ops import kernels, solver
+    blocks, fixed, vals = mask_blocks(mesh)
+    N = mesh.num_nodes
+    kernels.reset_launches()
+    solver.MASKED["jacobi"] = 0
+    with PassRecorder() as prec:
+        t0 = time.time()
+        x, res, its = solver.solve(blocks, np.zeros(N), fixed, vals, 1e-8)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    # the solver's metric recomputed from an independent host assembly:
+    # free rows r = -(A x), fixed rows exact; res0 over the eliminated
+    # right-hand side (free rows -A[:, fixed] vals, fixed rows vals)
+    A = solver.blocks_to_csr(blocks, N)
+    free = ~fixed
+    r = -(A @ x)[free]
+    d = np.asarray(A.diagonal())[free]
+    b0 = A[free][:, fixed] @ vals[fixed]
+    check = float(np.sqrt(np.dot(r / d, r) / (np.dot(b0 / d, b0)
+                                              + np.dot(vals, vals))))
+    print(f"Jacobi {label} ({N} nodes, {int(free.sum())} free): {dt:.3f} s, "
+          f"CG iterations {its}, refinement passes {len(prec.jacobi)} "
+          f"({prec.jacobi}), residual {res:.3e} (host check {check:.3e}), "
+          f"masked iterations {solver.MASKED['jacobi']}, x in "
+          f"[{x.min():.6f}, {x.max():.6f}]", flush=True)
+    if not (res <= 1e-8 and check <= 2e-8 and prec.jacobi
+            and not prec.amg):
+        fail(f"the Jacobi mask solve ({label}) failed")
+    if not (x.min() >= -1e-6 and x.max() <= 1.0 + 1e-6):
+        fail("the mask solution leaves [0, 1]")
+    return dt, dict(kernels.LAUNCHES)
+
+
+def jacobi_path(torch, mesh):
+    """Phase: element-block Jacobi CG at 250k (coords=None); the 10k
+    mesh too when the 250k solve runs past 60 s."""
+    dt, launches = jacobi_solve(torch, mesh, "250k")
+    if dt > 60.0:
+        from xfemm_tpu_torch.models import benchprob
+        from xfemm_tpu_torch.mesh import mesher
+        print(f"the 250k Jacobi mask solve ran {dt:.1f} s (past 60 s): "
+              f"the 10k mesh as well", flush=True)
+        jacobi_solve(torch, mesher.mesh_problem(benchprob.build(10_000)),
+                     "10k")
+    return launches
+
+
+def tiny_path(torch) -> None:
+    """Phase: a problem at or below 4*ROW_TILE_MIN unknowns (ELL-AMG) on
+    the card and through the CPU path, A compared to TOL of max|A|."""
+    from xfemm_tpu_torch.mesh import mesher
+    from xfemm_tpu_torch.models import benchprob, magnetostatics
+    from xfemm_tpu_torch.ops import solver
+    mesh = mesher.mesh_problem(benchprob.build(1500))
+    sols = {}
+    for dev in ("cuda", "cpu"):
+        clear_solver_caches(torch)
+        with PassRecorder() as prec:
+            sols[dev] = magnetostatics.solve(benchprob.build(1500), mesh,
+                                             device=dev)
+        if not prec.amg or prec.jacobi:
+            fail(f"the small problem did not take ELL-AMG on {dev}")
+    a, c = sols["cuda"], sols["cpu"]
+    d = float(abs(a.A - c.A).max() / abs(c.A).max())
+    print(f"small problem ({mesh.num_nodes} nodes; the band engine starts "
+          f"above {4 * solver.ROW_TILE_MIN} unknowns): card vs CPU max "
+          f"rel diff {d:.3e}, CG iterations {a.iterations} / "
+          f"{c.iterations}, residuals {a.residual:.2e} / {c.residual:.2e}",
+          flush=True)
+    if not (mesh.num_nodes <= 4 * solver.ROW_TILE_MIN and d <= TOL
+            and a.residual <= 1e-8):
+        fail("card and CPU path disagree on the small problem")
+    clear_solver_caches(torch)
+
+
+def bf16_path(torch, prob, mesh, h1, A_ref):
+    """Phase: the 250k problem at H1, the bf16 fine operator (triu band,
+    K5): cold and warm; the device loop's GMRES cycles, the host
+    ``band_fgmres`` passes, the tolerated stalls and any latch-off; K5
+    timed on that band against its plain version and bound."""
+    from xfemm_tpu_torch.ops import kernels
+    launches, recs, sess = regime_solves(torch, prob, mesh, h1,
+                                         "bf16 250k", A_ref)
+    if sess.plan is None or sess.plan["fine_dtype"] != "bf16":
+        fail(f"the bf16 phase planned {sess.plan}")
+    for phase, (rec, prec) in zip(("cold", "warm"), recs):
+        steps = sum(d[1] for d in rec.dev)
+        print(f"  bf16 {phase}: device runs {len(rec.dev)} ({steps} steps, "
+              f"{prec.fgmres_loop} GMRES(24) cycles in the loop), host "
+              f"band_fgmres passes {prec.fgmres_host}, tolerated bf16 "
+              f"stalls {prec.count('tolerated')}, latch-offs "
+              f"{prec.count('latched off')} (then ELL-AMG passes "
+              f"{prec.amg}), factor drops {prec.count('dropping')}",
+              flush=True)
+    lv0 = recs[0][1].lv0
+    if lv0 is None or lv0.A.dense.dtype != torch.bfloat16 \
+            or lv0.dvec is None:
+        fail("the bf16 phase ran no GMRES cycle on a bf16 triu band")
+    if launches["band_sym"] == 0:
+        fail("K5 was not launched on the bf16 band")
+    A = lv0.A
+    d = A.dense
+    NT, R, W = d.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    x = torch.randn(A.ncols, generator=gen, device="cuda")
+    args = (A.shift0, A.cchunk, A.ncols)
+    k = kernels.band_sym(d, lv0.dvec, x, *args)
+    p = kernels.band_sym_plain(d, lv0.dvec, x, *args)
+    err = rel_err(k, p)
+    ms = median_ms(lambda: kernels.band_sym(d, lv0.dvec, x, *args))
+    plain = median_ms(lambda: kernels.band_sym_plain(d, lv0.dvec, x, *args),
+                      reps=7)
+    bound = bound_ms(d.numel() * d.element_size() + 3 * 4 * A.ncols,
+                     4.0 * NT * R * W)
+    print(f"bf16 250k fine band {tuple(d.shape)} K5: max rel err {err:.3e} "
+          f"(tol {TOL:g}), {ms:.4f} ms (plain {plain:.4f} ms, bound "
+          f"{bound[0]:.4f} ms by {bound[1]})", flush=True)
+    if not err <= TOL:
+        fail("K5 disagrees with its plain version on the bf16 band")
+    del lv0, A, d, k, p, x, recs, sess
+    clear_solver_caches(torch)
+    return launches
+
+
+MUR = 500.0
+
+
+def linear_steel(prob, twin: bool):
+    """The steel of ``prob`` with an exactly linear B-H curve of relative
+    permeability MUR (``twin``: the genuinely linear material)."""
+    from xfemm_tpu_torch.constants import MU0
+    from xfemm_tpu_torch.materials.magnetic import MagneticMaterial
+    if twin:
+        prob.blockproplist[1] = MagneticMaterial(name="Steel", mu_x=MUR,
+                                                 mu_y=MUR)
+        return prob
+    steel = prob.blockproplist[1]
+    steel.Bdata, steel.Hdata, steel.slope = [], [], []
+    for b in (0.0, 0.5, 1.0, 1.5, 2.0, 2.5):
+        steel.Bdata.append(b)
+        steel.Hdata.append(complex(b / (MU0 * MUR)))
+    return prob
+
+
+def prevsoln_path(torch, mesh):
+    """Phase: previous-solution inputs at 250k, the static linear-limit
+    identity: with an exactly linear B-H curve the incremental (PrevType
+    1) and frozen (2) permeabilities about any solution equal MUR, so
+    the solves chained from the written .ans match the linear twin."""
+    from xfemm_tpu_torch.io import ansfile
+    from xfemm_tpu_torch.models import benchprob, magnetostatics
+    from xfemm_tpu_torch.ops import kernels
+
+    clear_solver_caches(torch)
+    kernels.reset_launches()
+    path = os.path.join(HERE, ".bench_cache", "prevsoln_250k.ans")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t0 = time.time()
+    base = linear_steel(benchprob.build(NODES), twin=False)
+    sol = magnetostatics.solve(base, mesh)
+    t1 = time.time()
+    ansfile.write_ans(ansfile.SolutionFile(
+        problem=base, mesh=ansfile.solution_mesh_from_solver(mesh, 1.0),
+        values=sol.A, label_case=sol.label_case), path)
+    t2 = time.time()
+    lin = magnetostatics.solve(linear_steel(benchprob.build(NODES), True),
+                               mesh)
+    scale = abs(lin.A).max()
+    print(f"PrevSoln 250k: base solve {t1 - t0:.3f} s (residual "
+          f"{sol.residual:.3e}), .ans written in {t2 - t1:.3f} s "
+          f"({os.path.getsize(path) / 1e6:.1f} MB), linear twin residual "
+          f"{lin.residual:.3e}", flush=True)
+    for ptype in (1, 2):
+        q = linear_steel(benchprob.build(NODES), twin=False)
+        q.PrevSoln = path
+        q.PrevType = ptype
+        t0 = time.time()
+        inc = magnetostatics.solve(q, mesh)
+        dt = time.time() - t0
+        d = float(abs(inc.A - lin.A).max() / scale)
+        print(f"  PrevType {ptype}: {dt:.3f} s (incl. reading the .ans), "
+              f"Newton iterations {inc.newton_iterations}, CG iterations "
+              f"{inc.iterations}, residual {inc.residual:.3e}; max|A - "
+              f"A_linear| / max|A_linear| {d:.3e} (tol 1e-6)", flush=True)
+        if not (d <= 1e-6 and inc.residual <= 1e-8
+                and inc.Aprev is not None):
+            fail(f"the PrevType {ptype} solve misses the linear twin")
+    os.remove(path)
+    launches = dict(kernels.LAUNCHES)
+    print(f"PrevSoln 250k launches: {launches}", flush=True)
+    clear_solver_caches(torch)
+    return launches
+
+
+def regime_paths(torch, mesh, A_ref):
+    """The regimes of slice 6 on the card: ELL-AMG at 250k, Jacobi at
+    250k, a small problem, the bf16 fine operator at 250k and previous-
+    solution inputs at 250k. Returns the launch counts per path."""
+    from xfemm_tpu_torch.models import benchprob
+    prob = benchprob.build(NODES)
+    h0, h1 = band_tiers(torch, prob, mesh)
+    out = {"250k ELL-AMG": ell_amg_path(torch, prob, mesh, h0, A_ref)}
+    out["250k Jacobi"] = jacobi_path(torch, mesh)
+    tiny_path(torch)
+    out["250k bf16"] = bf16_path(torch, prob, mesh, h1, A_ref)
+    out["250k PrevSoln"] = prevsoln_path(torch, mesh)
+    return out
 
 
 def clear_solver_caches(torch) -> None:
@@ -1248,10 +1708,13 @@ def main() -> None:
     if args.kernels_only:
         print("--kernels-only: stopping after the kernel checks", flush=True)
         return
-    rows, launches = [], []
+    rows, paths = [], {}
     if not args.large_only:
-        rows, launches = small_path(torch)
+        rows, paths, mesh, A_default = small_path(torch)
+        paths.update(regime_paths(torch, mesh, A_default))
+        del mesh, A_default
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
+    paths["4.47M"] = large_launches
     check_live_hierarchy(torch, amg, bt)
     rows.insert(1, measure_band_sym(torch, amg.levels[0]))
     measure_large_cg(torch, amg, bt)
@@ -1266,12 +1729,13 @@ def main() -> None:
     for r in rows:
         # each main path ran with the counts set to 0 just before it and
         # read just after; a kernel's launches are the sum over them
-        n_launch = sum(p[r["name"]] for p in launches) \
-            + large_launches[r["name"]]
+        by_path = {k: v[r["name"]] for k, v in paths.items()
+                   if v[r["name"]]}
         out.append({"name": r["name"], "route": "cuda",
                     "source": SOURCES[r["name"]],
                     "replaces": REPLACES[r["name"]],
-                    "launches": n_launch,
+                    "launches": sum(by_path.values()),
+                    "launches_by_path": by_path,
                     "max_abs_err": r["err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],

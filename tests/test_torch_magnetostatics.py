@@ -12,7 +12,6 @@ size for the band planner in both packages."""
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 from scipy.spatial import cKDTree
 
@@ -159,29 +158,6 @@ def test_floor_exit_keeps_bt_alone_passes(fixtures, jax_band_engine,
     if case == "benchprob10k":
         jsol = jmag.solve(jbench.build(10_000), mesh)
         assert runs[True][1].iterations == jsol.iterations
-
-
-def test_unported_regimes_raise(fixtures, jax_band_engine):
-    # the small-problem path
-    n = 100
-    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (n, n)).tocoo()
-    blk = tsolver.ElementBlock(idx=np.stack([A.row, A.col], 1)[:, :1],
-                               sign=np.ones((A.nnz, 1)),
-                               mat=A.data[:, None, None])
-    with pytest.raises(NotImplementedError, match="4\\*ROW_TILE_MIN"):
-        tsolver.solve([blk], np.ones(n), np.zeros(n, bool), np.zeros(n),
-                      1e-8, coords=np.zeros((n, 2)), device="cpu",
-                      hbm=HBM)
-    # plans of a smaller device: a bf16 fine operator (its GMRES inner
-    # solver) and no band storage tier at all
-    p = tfemfile.load(str(fixtures / "Temp.fem"))
-    mesh = tread_mesh(str(fixtures / "Temp"))
-    for hbm, what in ((5e7, "bf16 fine operator"),
-                      (1e6, "no band storage tier")):
-        tsolver._BAND_CACHE.clear()
-        tmag._PACK_CACHE.clear()
-        with pytest.raises(NotImplementedError, match=what):
-            tmag.solve(p, mesh, device="cpu", hbm_bytes=hbm)
 
 
 @pytest.mark.parametrize("hbm,triu", [(2e8, False), (1.5e8, False),

@@ -427,7 +427,9 @@ def test_inner_solve_dispatch(monkeypatch):
     """Which solver the loop's inner solve calls: bt_pcg with a
     standalone factor, band_pcg with the factor as the V-cycle smoother
     (stall window 48, as the JAX package), band_pcg alone without one;
-    a bf16 fine operator raises (its band_fgmres is not ported)."""
+    on a bf16 fine operator band_fgmres(24), restarted from the
+    recomputed residual at most four times (a stand-in: one that never
+    contracts runs all four, an exact one stops after the first)."""
     calls = []
     monkeypatch.setattr(tband, "band_pcg", lambda *a, **kw: (
         calls.append(("band_pcg", kw)) or (a[3], 0.0, 2)))
@@ -447,13 +449,24 @@ def test_inner_solve_dispatch(monkeypatch):
     assert calls[1][1]["stall_window"] == 48
     assert isinstance(calls[1][1]["bt"], tbt.BTSmoother)
     assert "stall_window" not in calls[2][1]
-    Abf = tband.BandMatrix(torch.zeros((1, 4, 4), dtype=torch.bfloat16), 0,
-                           4, 4)
-    amg_bf = tband.BandAMG(levels=(tband.BandLevel(A=Abf,
-                                                   invd=torch.ones(4)),),
-                           n=4)
-    with pytest.raises(NotImplementedError, match="band_fgmres"):
-        tnewton._inner_solve(amg_bf, r, 1e-3, 50, None, 4)
+    cycles = []
+
+    def fgmres(amg, rc, m):
+        cycles.append(m)
+        return exact * rc, 0.0, m
+
+    monkeypatch.setattr(tband, "band_fgmres", fgmres)
+    for exact, band, n_cycles in ((0.0, torch.zeros((1, 4, 4)), 4),
+                                  (1.0, torch.eye(4)[None], 1)):
+        cycles.clear()
+        Abf = tband.BandMatrix(band.to(torch.bfloat16), 0, 4, 4)
+        amg_bf = tband.BandAMG(levels=(tband.BandLevel(A=Abf,
+                                                       invd=torch.ones(4)),),
+                               n=4)
+        d, its = tnewton._inner_solve(amg_bf, r, 1e-3, 50, fac, 4)
+        assert cycles == [24] * n_cycles and its == 24 * n_cycles
+        assert torch.equal(d, exact * r)
+    assert len(calls) == 3
 
 
 def test_scatter_chain_ends_at_its_floor(monkeypatch):

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.band import BandLevel, BandMatrix, FineLayout
-from .ops.blocktri import BTFactor
+from .ops.band import BandAMG, BandLevel, BandMatrix, FineLayout, Sidecar
+from .ops.blocktri import BTCoarse, BTFactor
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -48,3 +48,43 @@ def bt_factor(f, device="cpu") -> BTFactor:
     """BTFactor (Sinv, G, s)."""
     return BTFactor(Sinv=tensor(f.Sinv, device), G=tensor(f.G, device),
                     s=tensor(f.s, device).float())
+
+
+def _opt(f, obj, device):
+    return None if obj is None else f(obj, device)
+
+
+def sidecar(sc, device="cpu") -> Sidecar:
+    """Sidecar (COO rows, cols as int64; values f32)."""
+    return Sidecar(rows=tensor(sc.rows, device).long(),
+                   cols=tensor(sc.cols, device).long(),
+                   vals=tensor(sc.vals, device).float())
+
+
+def band_amg(amg, device="cpu") -> BandAMG:
+    """A whole band hierarchy: every level's band, smoothing copy,
+    prolongator, triu diagonal, sidecars and inter-level permutation,
+    and the bottom solve (dense inverse or block-tridiagonal BTCoarse)."""
+    levels = []
+    for lv in amg.levels:
+        out = band_level(lv, device)
+        out.omega = tensor(lv.omega, device).float()
+        out.P = _opt(band_matrix, lv.P, device)
+        out.Abf = _opt(band_matrix, lv.Abf, device)
+        out.dvec = _opt(tensor, lv.dvec, device)
+        out.oob = _opt(sidecar, lv.oob, device)
+        out.P_oob = _opt(sidecar, lv.P_oob, device)
+        if lv.cperm is not None:
+            out.cperm = tensor(lv.cperm, device).long()
+            out.ciperm = tensor(lv.ciperm, device).long()
+        levels.append(out)
+    bc = amg.bt_coarse
+    return BandAMG(
+        levels=tuple(levels), n=int(amg.n),
+        coarse_inv=(None if bc is not None
+                    else tensor(amg.coarse_inv, device).float()),
+        bt_coarse=None if bc is None else BTCoarse(
+            bt_factor(bc.factor, device), n=int(bc.n),
+            perm=None if bc.perm is None else tensor(bc.perm, device).long(),
+            iperm=None if bc.iperm is None
+            else tensor(bc.iperm, device).long()))

@@ -18,8 +18,11 @@ at the full contract Precision, each host pass assembling the nonlinear
 subset's matrices and calling ``solver.solve``. A repeat solve of a
 cached session enters the device loop at iteration 0.
 ``XFEMM_TPU_NO_DEVICE_NEWTON=1`` keeps every iteration on the host
-chain. The JAX package's multi-device path and the previous-solution
-(incremental permeability) inputs come in later slices of the port.
+chain. A ``[PrevSoln]`` input (``load_previous``) makes the B-H
+elements linear with the incremental or frozen permeability tensor about
+the previous solution's field (``incremental_mu``), so the solve is one
+linear pass. The JAX package's multi-device path comes in a later slice
+of the port.
 """
 
 from __future__ import annotations
@@ -483,6 +486,7 @@ class MagSolution:
     residual: float = 0.0
     newton_iterations: int = 0       # Newton iterations, device steps
                                      # included
+    Aprev: np.ndarray | None = None  # previous solution (chained runs)
 
 
 def _circuit_preprocess(pk: PackedMagnetostatic, geom):
@@ -545,6 +549,86 @@ def _rhs(pk: PackedMagnetostatic, geom, be):
         b[pk.ridx[a]] += -pk.rsign[a] * Kb
         b[pk.ridx[bb]] += -pk.rsign[bb] * Kb
     return b
+
+
+def load_previous(problem: Problem, mesh: MeshData):
+    """Nodal A of the previous solution named by [PrevSoln], mapped
+    onto this mesh by exact coordinate match (the reference instead
+    reuses the mesh embedded in the .ans, fsolver.cpp:990)."""
+    from scipy.spatial import cKDTree
+
+    from ..io import ansfile
+    g = ansfile.read_ans(problem.PrevSoln)
+    d, idx = cKDTree(g.mesh.nodes).query(mesh.nodes)
+    if d.max() > 1e-08:
+        raise ValueError(
+            f"previous solution mesh does not match (max gap {d.max()})")
+    return np.real(g.values)[idx]
+
+
+def prev_element_B(problem: Problem, mesh: MeshData, Aprev: np.ndarray):
+    """Element flux density of the previous solution (getPrev2DB /
+    getPrevAxiB, fsolver.cpp:116-197)."""
+    from ..constants import LENGTH_TO_METERS
+    lc = LENGTH_TO_METERS[problem.LengthUnits]
+    tris = mesh.elements
+    v = mesh.nodes[tris]
+    x, y = v[:, :, 0], v[:, :, 1]
+    nxt = np.roll(np.arange(3), -1)
+    prv = np.roll(np.arange(3), 1)
+    b = y[:, nxt] - y[:, prv]
+    c = x[:, prv] - x[:, nxt]
+    da = b[:, 0] * c[:, 1] - b[:, 1] * c[:, 0]
+    A = np.asarray(Aprev, float)[tris]
+    if problem.ProblemType == ProblemType.PLANAR:
+        B1 = (A * c).sum(axis=1) / (da * lc)
+        B2 = -(A * b).sum(axis=1) / (da * lc)
+        return B1, B2
+    R = x
+    r = R.mean(axis=1)
+    v0, v2, v4 = A[:, 0], A[:, 1], A[:, 2]
+
+    def mid(Ra, Rb, va, vb):
+        deg = (Ra < 1e-06) & (Rb < 1e-06)
+        safe = np.where(deg, 1.0, 4.0 * (Ra + Rb))
+        out = (Rb * (3.0 * va + vb) + Ra * (va + 3.0 * vb)) / safe
+        return np.where(deg, (va + vb) / 2.0, out)
+
+    v1 = mid(R[:, 0], R[:, 1], v0, v2)
+    v3 = mid(R[:, 1], R[:, 2], v2, v4)
+    v5 = mid(R[:, 2], R[:, 0], v4, v0)
+    dp = (-v0 + v2 + 4.0 * v3 - 4.0 * v5) / 3.0
+    dq = (-v0 - 4.0 * v1 + 4.0 * v3 + v4) / 3.0
+    daxi = da * 2.0 * PI * r * lc * lc
+    return (-(c[:, 1] * dp + c[:, 2] * dq) / daxi,
+            (b[:, 1] * dp + b[:, 2] * dq) / daxi)
+
+
+def incremental_mu(problem: Problem, pk: PackedMagnetostatic,
+                   B1p: np.ndarray, B2p: np.ndarray, mats):
+    """(mu1, mu2, v12) tensors about the DC offset for B-H elements
+    (static2d.cpp:633-679 / staticaxi.cpp:488-500)."""
+    T = len(pk.lbl)
+    mu1 = np.ones(T)
+    mu2 = np.ones(T)
+    v12 = np.zeros(T)
+    frozen = problem.PrevType == 2
+    for t in np.nonzero(pk.nonlinear)[0]:
+        mat = mats[pk.blk[t]]
+        B = math.hypot(B1p[t], B2p[t])
+        muinc, murel = mat.incremental_permeability_dc(B)
+        if B == 0:
+            mu1[t] = mu2[t] = muinc
+        elif frozen:
+            mu1[t] = mu2[t] = murel
+        else:
+            b1s, b2s = B1p[t] ** 2, B2p[t] ** 2
+            B2 = B * B
+            mu1[t] = B2 * muinc * murel / (b1s * murel + b2s * muinc)
+            mu2[t] = B2 * muinc * murel / (b1s * muinc + b2s * murel)
+            v12[t] = -B1p[t] * B2p[t] * (murel - muinc) / (B2 * murel
+                                                           * muinc)
+    return mu1, mu2, v12
 
 
 def _dn_cg_budget(sess) -> int:
@@ -691,6 +775,7 @@ def _problem_fingerprint(problem: Problem):
 
 
 def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
+          Aprev: np.ndarray | None = None,
           x0_A: np.ndarray | None = None, device=None,
           hbm_bytes: float | None = None) -> MagSolution:
     """Planar nonlinear magnetostatic solve (Static2D semantics).
@@ -701,15 +786,16 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     host. ``hbm_bytes`` is the device memory the band planner plans
     against (read from the card on CUDA; required on the CPU).
     ``x0_A`` warm-starts the Newton loop from a previous solution's
-    nodal A on the same mesh.
+    nodal A on the same mesh. ``Aprev`` (or the file named by the
+    problem's ``PrevSoln``) is a previous solution's nodal A: the B-H
+    elements then take the incremental (``PrevType`` 1) or frozen (2)
+    permeability about its field, and the solve is linear.
     """
     assert problem.ProblemType == ProblemType.PLANAR, \
         "axisymmetric problems come with a later slice of the port"
-    if problem.PrevSoln:
-        raise NotImplementedError(
-            "previous-solution (incremental/frozen permeability) inputs "
-            "are not ported yet")
     from ..utils import profiling
+    if Aprev is None and problem.PrevSoln:
+        Aprev = load_previous(problem, mesh)
     dev = solver.resolve_device(device)
     c = C_APOT
     # pack/geometry cache: keyed on object identity (the cache holds
@@ -722,7 +808,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     # values, band + factor) and the initial-mu element blocks
     extra: dict = {}
     if fp is not None and hit is not None and hit[0] == fp:
-        pk, geom, Mx, My = hit[1]
+        pk, geom, Mx, My, Mxy = hit[1]
         extra = hit[2]
         _PACK_CACHE.move_to_end(ckey)
     else:
@@ -731,12 +817,12 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         with profiling.phase("geometry"):
             geom = assembly.tri_geometry(pk.xy, pk.tris)
             _circuit_preprocess(pk, geom)
-            Mx, My, _Mxy = assembly.curl_matrices(geom)
+            Mx, My, Mxy = assembly.curl_matrices(geom)
         # fingerprint AFTER pack: get_slopes fills material spline state
         # in place, so the pre-pack hash would never match again
         fp2 = _problem_fingerprint(problem)
         if fp2 is not None:
-            _PACK_CACHE[ckey] = (fp2, (pk, geom, Mx, My), extra)
+            _PACK_CACHE[ckey] = (fp2, (pk, geom, Mx, My, Mxy), extra)
             while len(_PACK_CACHE) > _PACK_CACHE_MAX:
                 _PACK_CACHE.popitem(last=False)
 
@@ -784,6 +870,17 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
 
     nonlinear = bool(pk.nonlinear.any())
     nl = pk.nonlinear
+    Mxy_v12 = 0.0
+    if Aprev is not None and nonlinear:
+        # incremental/frozen permeability: the B-H elements become
+        # linear with a tensor permeability about the DC offset
+        B1p, B2p = prev_element_B(problem, mesh, Aprev)
+        mu1i, mu2i, v12 = incremental_mu(problem, pk, B1p, B2p,
+                                         problem.blockproplist)
+        mu1 = np.where(nl, mu1i, mu1)
+        mu2 = np.where(nl, mu2i, mu2)
+        Mxy_v12 = Mxy * v12[:, None, None]
+        nonlinear = False
 
     # representative coordinates per reduced DOF (band ordering)
     dof_coords = np.zeros((pk.nreduced, 2))
@@ -849,7 +946,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         # repeat solve: the it-0 linear system's inputs are covered by
         # the pack fingerprint, so its solution is identical -- reuse it
         # and enter the device Newton middle directly
-        if (it == 0 and use_device and not warm
+        if (it == 0 and use_device and not warm and Aprev is None
                 and extra.get("it0_V") is not None
                 and sess.band_amg is not None and sess.sub_cache is not None
                 and extra.get(_dkey) is not None):
@@ -957,13 +1054,13 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 # first host pass of this solve; the initial-mu blocks
                 # are identical across repeat solves of the same problem
                 # values (no warm Newton sources): reuse them
-                it0_cacheable = not (warm and nonlinear)
+                it0_cacheable = Aprev is None and not (warm and nonlinear)
                 it0_hit = extra.get("it0") if it0_cacheable else None
                 if it0_hit is not None:
                     Me, blocks, b_base = it0_hit
                 else:
                     Me = (Mx / mu2[:, None, None] + My / mu1[:, None, None]
-                          + Mn)
+                          + Mn + Mxy_v12)
                     blocks = _element_blocks(pk, Me)
                     b_base = _rhs(pk, geom, be_static)
                     fresh_full = it > 0
@@ -979,9 +1076,11 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 # change, so the linear part stays valid across
                 # iterations and across cached solves)
                 if not fresh_full:
-                    blocks[0].mat[ns] = -(Mx[ns] / mu2[ns, None, None]
-                                          + My[ns] / mu1[ns, None, None]
-                                          + Mn[ns])
+                    neg_ns = -(Mx[ns] / mu2[ns, None, None]
+                               + My[ns] / mu1[ns, None, None] + Mn[ns])
+                    if isinstance(Mxy_v12, np.ndarray):
+                        neg_ns -= Mxy_v12[ns]
+                    blocks[0].mat[ns] = neg_ns
                 b = b_base.copy()
                 dbe = be[ns] - be_static[ns]
                 flat_i = pk.ridx[pk.tris[ns]].reshape(-1)
@@ -1005,8 +1104,8 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             break
         lastres = res
         res = math.sqrt(num / den)
-        if it == 0 and not warm and "it0" in extra \
-                and "it0_V" not in extra:
+        if (it == 0 and Aprev is None and not warm and "it0" in extra
+                and "it0_V" not in extra):
             # cache the it-0 solution next to the it-0 element blocks
             extra["it0_V"] = V.copy()
         if newton_debug:
@@ -1061,4 +1160,4 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     return MagSolution(problem=problem, mesh=mesh, A=A,
                        circuits=pk.circuits, label_case=label_case,
                        iterations=iters_total, residual=float(rel_resid),
-                       newton_iterations=it + 1 + it_shift)
+                       newton_iterations=it + 1 + it_shift, Aprev=Aprev)

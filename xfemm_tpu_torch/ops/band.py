@@ -1057,3 +1057,64 @@ def band_pcg(amg: BandAMG, b: torch.Tensor, tol, x0: torch.Tensor,
 
     return _chunked_pcg(op, prec, lv0.invd, b, tol, x0, max_iter,
                         stall_window)
+
+
+def band_fgmres(amg: BandAMG, b: torch.Tensor, m: int = 16):
+    """One GMRES(m) cycle, right-preconditioned by the band V-cycle.
+
+    The bf16 fine operator perturbs A by ~4e-3 of its norm -- more than
+    the smallest eigenvalues of an ill-conditioned FEM system, so the
+    perturbed operator is effectively indefinite and CG diverges (three-
+    term recurrences have no residual-minimization safety net). GMRES
+    minimizes the residual of the perturbed system, contracting until
+    the bf16 floor; the mixed-precision refinement driver then restarts
+    it from the true f64 residual, exactly as it restarts CG passes.
+
+    The Arnoldi basis (two-pass classical Gram-Schmidt) runs in true
+    fp32 products, TF32 off: reduced-precision passes corrupt H so that
+    it stops describing the Krylov space. The (m+1) x m least-squares
+    problem is solved on the host in f64 by numpy's SVD-based routine
+    (gelsd), with the JAX package's cutoff (f32 eps times m+1): like its
+    ``jnp.linalg.lstsq`` it tolerates a rank-deficient H after a
+    breakdown (a zero new basis norm), which the card's QR-based
+    ``torch.linalg.lstsq`` does not. One blocking copy of H per cycle.
+    Returns ``(x, relative least-squares residual, m)``."""
+    lv0 = amg.levels[0]
+    n = b.shape[0]
+    dev = b.device
+
+    def op(x):
+        return band_apply(lv0.A, lv0.dvec, x, lv0.oob)
+
+    beta = torch.linalg.vector_norm(b)
+    bsafe = torch.clamp_min(beta, 1e-30)
+    V = torch.zeros((m + 1, n), dtype=torch.float32, device=dev)
+    V[0] = b / bsafe
+    Z = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    H = torch.zeros((m + 1, m), dtype=torch.float32, device=dev)
+    with kernels.fp32_matmul():
+        for j in range(m):
+            z = band_vcycle(amg, V[j])
+            w = op(z)
+            # classical Gram-Schmidt, two passes, over the j+1 basis
+            # vectors built so far (the JAX package masks the zero rows)
+            Vj = V[:j + 1]
+            h1 = Vj @ w
+            w = w - h1 @ Vj
+            h2 = Vj @ w
+            w = w - h2 @ Vj
+            wn = torch.linalg.vector_norm(w)
+            V[j + 1] = w / torch.clamp_min(wn, 1e-30)
+            Z[j] = z
+            H[:j + 1, j] = h1 + h2
+            H[j + 1, j] = wn
+    Hh = H.double().cpu().numpy()
+    beta_h = float(beta)
+    e1 = np.zeros(m + 1)
+    e1[0] = beta_h
+    y, _res, _rank, _sv = np.linalg.lstsq(
+        Hh, e1, rcond=float(np.finfo(np.float32).eps) * (m + 1))
+    with kernels.fp32_matmul():
+        x = torch.as_tensor(y, dtype=torch.float32, device=dev) @ Z
+    rel = float(np.linalg.norm(e1 - Hh @ y) / max(beta_h, 1e-30))
+    return x, rel, m

@@ -43,6 +43,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -213,8 +214,31 @@ def band_mv_plain(dense: torch.Tensor, x: torch.Tensor, shift0: int,
     base = shift0 + lpad // cchunk
     wins = torch.cat([xc[base + s: base + s + NT] for s in range(K)], dim=1)
     with fp32_matmul():
-        y = torch.bmm(dense.float(), wins[:, :, None])[:, :, 0]
+        y = torch.bmm(_widened(dense), wins[:, :, None])[:, :, 0]
     return y.reshape(-1)
+
+
+#: fp32 copies of the bf16 bands the plain versions read on the host,
+#: by tensor identity: (version counter, copy), dropped with the band
+_WIDENED: dict = {}
+
+
+def _widened(dense: torch.Tensor) -> torch.Tensor:
+    """``dense`` as fp32 (the same values). A host bf16 band keeps its
+    widened copy while it lives and is not written (its version counter
+    unchanged): the host's conversion costs as much as the product, and
+    the bf16 operator's GMRES applies one band ~5 times per step."""
+    if dense.dtype == torch.float32 or dense.is_cuda:
+        return dense.float()
+    key = id(dense)
+    hit = _WIDENED.get(key)
+    if hit is not None and hit[0] == dense._version:
+        return hit[1]
+    if hit is None:
+        weakref.finalize(dense, _WIDENED.pop, key, None)
+    wide = dense.float()
+    _WIDENED[key] = (dense._version, wide)
+    return wide
 
 
 def band_mv(dense: torch.Tensor, x: torch.Tensor, shift0: int, cchunk: int,

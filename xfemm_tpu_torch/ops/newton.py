@@ -402,21 +402,43 @@ def _refresh_operator(dn: DeviceNewton, amg: BandAMG, Me, entry_vals):
             contrib, oob_vals_new)
 
 
+#: GMRES(24) cycles one inner solve of the loop may restart on a bf16
+#: fine operator
+FGMRES_RESTARTS = 4
+
+
 def _inner_solve(amg_new, r_scaled, tol_eff, inner_iter, bt, n):
-    """Inner linear solve of the loop: block-tridiagonal-preconditioned
-    CG with a standalone factor; the band-AMG V-cycle PCG with the
-    factor as its fine smoother (a partitioned ordering's BTSmoother,
-    with a short stall window: the composite plateaus on interface
-    modes, and bailing early lets the Newton step proceed with the
-    partial correction -- the next step re-solves anyway); the V-cycle
-    PCG alone without a factor. Returns ``(d, iterations)``."""
+    """Inner linear solve of the loop: on a bf16 fine operator up to
+    FGMRES_RESTARTS cycles of GMRES(24) (CG diverges on the bf16-
+    perturbed operator, ``band.band_fgmres``), each restarted from the
+    f32 residual recomputed on the loop's operator, until the Jacobi-
+    weighted residual meets ``tol_eff``; else block-tridiagonal-
+    preconditioned CG with a standalone factor; the band-AMG V-cycle PCG
+    with the factor as its fine smoother (a partitioned ordering's
+    BTSmoother, with a short stall window: the composite plateaus on
+    interface modes, and bailing early lets the Newton step proceed with
+    the partial correction -- the next step re-solves anyway); the
+    V-cycle PCG alone without a factor. Returns ``(d, iterations)``
+    (for GMRES the Arnoldi steps, m per cycle)."""
     lvn = amg_new.levels[0]
-    if lvn.A.dense.dtype == torch.bfloat16:
-        from .solver import LATER
-        raise NotImplementedError(
-            "the fused Newton loop on a bf16 fine operator (its inner "
-            "solver, band_fgmres) " + LATER)
     x0 = torch.zeros(n, dtype=torch.float32, device=r_scaled.device)
+    if lvn.A.dense.dtype == torch.bfloat16:
+        invd = lvn.invd
+        res0_pass = torch.dot(invd * r_scaled, r_scaled)
+        res0_pass = torch.where(res0_pass == 0.0,
+                                torch.ones_like(res0_pass), res0_pass)
+        d = x0
+        its = 0
+        for _ in range(FGMRES_RESTARTS):
+            rc = r_scaled - band_mod.band_apply(lvn.A, lvn.dvec, d, lvn.oob)
+            dd, _rr, fits = band_mod.band_fgmres(amg_new, rc, 24)
+            d = d + dd
+            its += fits
+            rc2 = r_scaled - band_mod.band_apply(lvn.A, lvn.dvec, d, lvn.oob)
+            rn = torch.sqrt(torch.dot(invd * rc2, rc2) / res0_pass)
+            if not bool(rn > tol_eff):
+                break
+        return d, its
     if bt is None:
         d, _rel, its = band_mod.band_pcg(amg_new, r_scaled, tol_eff, x0,
                                          inner_iter)

@@ -1,5 +1,5 @@
 """Linear solve of the FEM systems: host f64 refinement around a device
-f32 band CG.
+f32 CG.
 
 The convergence contract matches the reference's SSOR-PCG
 (cfemm/libfemm/spars.cpp:300-313): iterate until the Jacobi-weighted
@@ -7,19 +7,23 @@ residual ``sqrt(r.D^-1.r / b.D^-1.b) <= tol``. The element matrices stay
 on the host in f64 (a scipy CSR used for residuals and the stopping
 metric); the device runs CG in f32 on correction systems
 ``A d = r/||r||`` and the f64 solution accumulates on the host
-(mixed-precision iterative refinement). The device CG is the band
-engine: the RCM-ordered operator as a dense band (ops/band.py) with the
-block-tridiagonal factor (ops/blocktri.py) as preconditioner -- the
-regime the planner picks for the 250k problem ("bt-alone").
+(mixed-precision iterative refinement). The device is f32 on every
+platform, the card included, as the JAX package's TPU branch.
 
-The device is f32 on every platform, the card included: the band
-engine is the solver here, whatever f64 support the device has.
+Engines, chosen per call as in the JAX package:
 
-Regimes that this port does not carry yet raise ``NotImplementedError``:
-problems too small for the band engine (element-block Jacobi CG and
-ELL-AMG), plans where no band storage tier fits or the fine operator
-is bf16 (its GMRES inner solver), and the recovery path that latches
-the band engine off for the ELL-AMG engine.
+- the band engine (ops/band.py, ops/blocktri.py) for problems above
+  4*ROW_TILE_MIN unknowns with DOF coordinates: the RCM- (or RCB-)
+  ordered operator as a dense band with the block-tridiagonal factor
+  (the "bt-alone" regime of the 250k problem), the band-AMG V-cycle, or
+  both; a bf16 fine operator takes GMRES(24) passes
+  (``band.band_fgmres``) with two tolerated stalls;
+- the ELL-AMG engine (ops/amg.py): smoothed-aggregation AMG-PCG on the
+  Dirichlet-eliminated ELLPACK operator, for small problems, for plans
+  where no band storage tier fits, and as the recovery engine once a
+  band V-cycle stops contracting (the session latches the band engine
+  off, ``Session.band_disabled``);
+- element-block Jacobi CG (``_pcg_impl``) without DOF coordinates.
 """
 
 from __future__ import annotations
@@ -31,12 +35,6 @@ from typing import NamedTuple
 import numpy as np
 import scipy.sparse as sp
 import torch
-
-LATER_SMALL = ("is not ported yet: problems at or below 4*ROW_TILE_MIN "
-               "unknowns (or without DOF coordinates) take the element-"
-               "block Jacobi / ELL-AMG path of a later slice")
-LATER = "is not ported yet: it belongs to a later slice of the PyTorch port"
-
 
 #: print one line per band CG pass (engine, iterations, host metric
 #: before and after), as the JAX package's XFEMM_TPU_SOLVE_TRACE
@@ -103,6 +101,175 @@ def blocks_to_csr(blocks, n: int):
     """Assemble host-side f64 CSR from element blocks (residual path)."""
     rows, cols, data = _blocks_coo(blocks)
     return sp.coo_matrix((data, (rows, cols)), shape=(n, n)).tocsr()
+
+
+# ---------------------------------------------------------------------- #
+# the element-block Jacobi and ELL-AMG engines                           #
+# ---------------------------------------------------------------------- #
+
+def block_matvec(block: ElementBlock, x: torch.Tensor, n: int):
+    """P^T (mat @ (P x)) of one block of device tensors: a gather, the
+    batched element products and an ``index_add_`` (atomic on the card,
+    so its sums vary by rounding from run to run)."""
+    xe = block.sign * x[block.idx]                        # (E, K) gather
+    ye = torch.einsum("ekl,el->ek", block.mat, xe)        # batched apply
+    contrib = (block.sign * ye).reshape(-1)
+    return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(
+        0, block.idx.reshape(-1), contrib)
+
+
+def block_diag(block: ElementBlock, n: int):
+    d = torch.einsum("ekk->ek", block.mat)                # sign^2 == 1
+    return torch.zeros(n, dtype=d.dtype, device=d.device).index_add_(
+        0, block.idx.reshape(-1), d.reshape(-1))
+
+
+def apply_blocks(blocks, x: torch.Tensor, n: int):
+    y = torch.zeros(n, dtype=x.dtype, device=x.device)
+    for b in blocks:
+        y = y + block_matvec(b, x, n)
+    return y
+
+
+def assembled_diag(blocks, n: int, fixed_mask: torch.Tensor):
+    d = torch.zeros(n, dtype=blocks[0].mat.dtype, device=blocks[0].mat.device)
+    for b in blocks:
+        d = d + block_diag(b, n)
+    return torch.where(fixed_mask, torch.ones_like(d), d)
+
+
+def _to_device_blocks(blocks, dtype, device):
+    return tuple(ElementBlock(
+        idx=torch.as_tensor(np.asarray(b.idx, np.int64), device=device),
+        sign=torch.as_tensor(np.asarray(b.sign), dtype=dtype, device=device),
+        mat=torch.as_tensor(np.asarray(b.mat), dtype=dtype, device=device))
+        for b in blocks)
+
+
+#: iterations the host enqueues between blocking reads of the stopping
+#: state in the Jacobi and ELL-AMG loops (between reads it only polls
+#: the CUDA event behind each iteration's "still active" flag)
+CHECK_EVERY = 16
+#: masked iterations launched past each engine's stop, summed over
+#: passes: the host enqueued them before it saw the device finish. They
+#: do not change the result; on the CPU there are none
+MASKED = {"ell-amg": 0, "jacobi": 0}
+
+
+def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
+               stall_window: int, engine: str):
+    """The JAX package's PCG ``while_loop`` (``_pcg_impl`` and
+    ``_pcg_amg_impl``) as a host loop over device tensors: stop when
+    ``sqrt(|z.r| / res0) <= tol``, at ``max_iter``, or when |z.r| has not
+    improved by 1% in ``stall_window`` iterations (the dtype floor).
+
+    The stopping state stays on the device. On the card an iteration
+    past the stop is masked (its step scale is zero, so x, r, p and the
+    counters do not move), which keeps the result identical to the
+    early exit; the host reads the state once per CHECK_EVERY
+    iterations and ends the pass early once the device has reported a
+    finished flag. On the CPU the loop checks every iteration and
+    launches no masked one. Returns ``(x, relative |z.r|, iterations)``
+    with the last two as host numbers."""
+    dev = b.device
+    res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
+    tol = torch.as_tensor(tol, dtype=b.dtype, device=dev)
+    r = b - op(x0)
+    z = prec(r)
+    p = z
+    res = torch.dot(z, r)
+    x = x0.clone()
+    it = torch.zeros((), dtype=torch.int32, device=dev)
+    best = res.abs()
+    since = torch.zeros((), dtype=torch.int32, device=dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        flags = torch.empty(CHECK_EVERY, dtype=torch.bool, pin_memory=True)
+    launched = 0
+
+    def running():
+        return ((torch.sqrt(res.abs() / res0) > tol) & (it < max_iter)
+                & (since < stall_window))
+
+    done = False
+    while not done:
+        pending = []
+        for j in range(CHECK_EVERY):
+            active = running()
+            if cuda:
+                flags[j].copy_(active, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+                pending.append((j, ev))
+            elif not bool(active):
+                done = True
+                break
+            launched += 1
+            u = op(p)
+            delta = torch.where(active, res / torch.dot(p, u),
+                                torch.zeros_like(res))
+            x = x + delta * p
+            r = r - delta * u
+            z = prec(r)
+            res_new = torch.dot(z, r)
+            p = torch.where(active, z + (res_new / res) * p, p)
+            improved = active & (res_new.abs() < 0.99 * best)
+            best = torch.where(improved, res_new.abs(), best)
+            since = torch.where(active & ~improved, since + 1,
+                                torch.where(improved, 0, since))
+            res = torch.where(active, res_new, res)
+            it = it + active.to(torch.int32)
+            while cuda and pending and pending[0][1].query():
+                k, _ = pending.pop(0)
+                if not bool(flags[k]):
+                    done = True
+                    break
+            if done:
+                break
+        if cuda and not done:
+            done = not bool(running())
+    n_it = int(it)
+    MASKED[engine] += launched - n_it
+    return x, float(torch.sqrt(res.abs() / res0)), n_it
+
+
+def _pcg_impl(blocks, b, diag, fixed_mask, tol, x0, max_iter: int,
+              stall_window: int = 250):
+    """Element-block Jacobi-PCG on the UNELIMINATED blocks: the operator
+    keeps Dirichlet rows as identity rows inside ``op``. Stops on the
+    Jacobi-weighted |z.r| with the stagnation guard (the working dtype's
+    floor); the host refinement driver then restarts from the true
+    residual."""
+    n = b.shape[0]
+
+    def op(x):
+        xf = torch.where(fixed_mask, torch.zeros_like(x), x)
+        y = apply_blocks(blocks, xf, n)
+        return torch.where(fixed_mask, x, y)
+
+    invd = 1.0 / diag
+    # res0 = (M^-1 b) . b (spars.cpp:257-259)
+    res0 = torch.dot(invd * b, b)
+    return _while_pcg(op, lambda r: invd * r, res0, b, tol, x0, max_iter,
+                      stall_window, "jacobi")
+
+
+def _pcg_amg_impl(amg, ell_vals, ell_cols, b, tol, x0, max_iter: int,
+                  stall_window: int = 120):
+    """AMG-preconditioned CG on a Dirichlet-eliminated ELLPACK operator:
+    the stopping metric uses z = M^-1 r from the V-cycle, with ``abs``
+    on res0 because the V-cycle need not be positive."""
+    from . import amg as amg_mod
+
+    def op(x):
+        return amg_mod.ell_matvec(ell_vals, ell_cols, x)
+
+    def prec(r):
+        return amg_mod.vcycle(amg, r)
+
+    res0 = torch.dot(prec(b), b).abs()
+    return _while_pcg(op, prec, res0, b, tol, x0, max_iter, stall_window,
+                      "ell-amg")
 
 
 ROW_TILE_MIN = 512
@@ -320,28 +487,26 @@ def plan_band_hierarchy(Ap, partitioned: bool, hbm: float):
                 bt_store=bt_store)
 
 
-def _check_plan(plan) -> None:
-    """Raise for the plans this port does not carry yet."""
-    if plan is None:
-        raise NotImplementedError("no band storage tier fits the device; "
-                                  "the fallback solver " + LATER)
-    if plan["fine_dtype"]:
-        raise NotImplementedError("a bf16 fine operator (the band GMRES "
-                                  "inner solver) " + LATER)
-
-
 class Session:
     """Per-(problem, mesh) solver state reused across Newton iterations:
     the COO->CSR dedup map, the band ordering, the band hierarchy and
-    its fine value slots, and the frozen block-tridiagonal factor. When
-    the inner iteration count degrades past ``refresh_factor`` times the
-    first pass's count the factor is refactored (or, without one, the
-    hierarchy rebuilt)."""
+    its fine value slots, the frozen block-tridiagonal factor, and the
+    ELL-AMG hierarchy with its ELLPACK slot map. When the inner
+    iteration count degrades past ``refresh_factor`` times the first
+    pass's count the factor is refactored (or, without one, the band
+    or ELL-AMG hierarchy rebuilt)."""
 
     def __init__(self, refresh_factor: float = 3.0):
         self.refresh_factor = refresh_factor
         self.pattern = None      # (slot, indptr, indices, nnz, diag_slots)
         self.coo = None          # (rows, cols, sign-outer, keep-mask)
+        self.ell_map = None      # (rows, pos, D)
+        self.amg = None          # amg.DeviceAMG
+        self.ell_cols_dev = None
+        self.band_disabled = False  # latched off: the band V-cycle stopped
+                                    # contracting on this session's systems
+        self.no_tier = None      # device memory size at which the plan
+                                 # found no band storage tier
         self.first_iters = None
         self.last_iters = None
         self.perm = None         # band permutation + inverse
@@ -524,7 +689,8 @@ def _setup_hierarchy(session: Session, Ap, coords, dev,
     key_p = session.gpos[perm] if session.gpos is not None else None
     with profiling.phase("band amg setup"):
         session.band_amg, session.band_layout = band_mod.setup_band_amg(
-            Ap, sym=plan["sym"], bt_coarse_budget=plan["bt_budget"],
+            Ap, sym=plan["sym"], fine_dtype=plan["fine_dtype"],
+            bt_coarse_budget=plan["bt_budget"],
             bt_transient_budget=plan["bt_transient"], coords=coords_p,
             budget_bytes=plan["hier_budget"], fine_full=plan["fine_full"],
             band_key=key_p, fine_abf=not plan["bt_smooth"], device=dev)
@@ -589,12 +755,18 @@ def _factor(session: Session, Ap_data, dev):
 
 def _build_band(session: Session, At, coords, dev, hbm: float) -> None:
     """Plan, build the band hierarchy and (when the plan has one) the
-    fine block-tridiagonal factor."""
+    fine block-tridiagonal factor. A plan with no storage tier leaves
+    ``band_amg`` None (the solve takes the ELL-AMG engine) and records
+    the memory size in ``no_tier``: the plan depends on the pattern
+    alone, so the session does not plan again at that size."""
     perm, iperm = session.perm
     Ap = _permuted(session, At)
     plan = plan_band_hierarchy(Ap, session.partitioned, hbm)
-    _check_plan(plan)
     session.plan = plan
+    if plan is None:
+        session.band_amg = None
+        session.no_tier = hbm
+        return
     session.bt = None
     session.bt_smooth = plan["bt_smooth"]
     session.bt_store = plan["bt_store"]
@@ -639,6 +811,8 @@ def _prepare_band(session: Session, At, fixed, coords, n: int, dev,
     """Adopt, refresh or (re)build the band engine state for ``At``."""
     from ..utils import profiling
 
+    if session.no_tier == hbm:
+        return
     ckey = None
     if session.band_amg is None:
         ckey = _band_cache_key(At, fixed, dev)
@@ -665,8 +839,9 @@ def _prepare_band(session: Session, At, fixed, coords, n: int, dev,
         # (re)build: with no factor to refresh, a stale V-cycle means the
         # frozen coarse correction no longer matches the operator
         _build_band(session, At, coords, dev, hbm)
-        _cache_put(session, ckey if ckey is not None
-                   else _band_cache_key(At, fixed, dev))
+        if session.band_amg is not None:
+            _cache_put(session, ckey if ckey is not None
+                       else _band_cache_key(At, fixed, dev))
     else:
         # with a factor only the FACTOR goes stale (the fine operator
         # refreshes exactly every call)
@@ -692,6 +867,71 @@ def _drop_factor(session: Session, At, coords, dev) -> None:
             entry[k] = getattr(session, k)
 
 
+def _ell_values(session: Session, At, dev) -> torch.Tensor:
+    """The ELLPACK values of ``At`` on ``dev``. The slot map and the
+    device columns are cached across Newton iterations: after the first
+    call only the f32 values ship to the device."""
+    from . import amg as amg_mod
+
+    n = At.shape[0]
+    if session.ell_map is None:
+        ell = amg_mod.csr_to_ell(At, np.float32)
+        deg = np.diff(At.indptr)
+        rows_map = np.repeat(np.arange(n), deg)
+        pos_map = np.arange(At.nnz) - np.repeat(At.indptr[:-1], deg)
+        session.ell_map = (rows_map, pos_map, ell.vals.shape[1])
+        session.ell_cols_dev = torch.as_tensor(ell.cols.astype(np.int64),
+                                               device=dev)
+        return torch.as_tensor(ell.vals, device=dev)
+    rows_map, pos_map, D = session.ell_map
+    vals = np.zeros((n, D), np.float32)
+    vals[rows_map, pos_map] = At.data.astype(np.float32)
+    return torch.as_tensor(vals, device=dev)
+
+
+def _fallback_engine(session: Session, At, blocks, fixed, coords, diag64,
+                     dev, latched: bool = False):
+    """The engine of a solve without the band: ``("amg", ell_vals,
+    ell_cols)`` when DOF coordinates give an ELL-AMG hierarchy, else
+    ``("jacobi", device blocks, diagonal, fixed mask)``. The hierarchy is
+    rebuilt when stale (the iteration count past ``refresh_factor`` times
+    the first pass's); at a latch-off it is built only when missing, as
+    the JAX package does."""
+    from ..utils import profiling
+    from . import amg as amg_mod
+
+    if coords is not None:
+        stale = (not latched and session.first_iters is not None
+                 and session.last_iters is not None
+                 and session.last_iters
+                 > session.refresh_factor * max(session.first_iters, 1))
+        if session.amg is None or stale:
+            with profiling.phase("amg setup"):
+                host_levels = amg_mod.setup(At, coords, fixed)
+                if host_levels is not None:
+                    session.amg = amg_mod.to_device(host_levels, np.float32,
+                                                    dev)
+                    if not latched:
+                        session.first_iters = None
+    if coords is not None and session.amg is not None:
+        return ("amg", _ell_values(session, At, dev), session.ell_cols_dev)
+    return ("jacobi", _to_device_blocks(blocks, torch.float32, dev),
+            torch.as_tensor(diag64, dtype=torch.float32, device=dev),
+            torch.as_tensor(fixed, device=dev))
+
+
+def _latch_off(session: Session) -> None:
+    """The band V-cycle stopped contracting on this session's system (an
+    indefinite Newton system, where smoothed aggregation has no
+    convergence guarantee): disable the band engine for the session and
+    drop its cache entry, so no later solve adopts it again."""
+    session.band_disabled = True
+    session.band_amg = None
+    session.bt = None
+    if session.band_ckey is not None:
+        _BAND_CACHE.pop(session.band_ckey, None)
+
+
 def solve(blocks, b, fixed_mask, fixed_vals, tol,
           x0=None, max_iter: int = 200000,
           inner_tol: float | None = None, inner_iter: int = 20000,
@@ -703,11 +943,13 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
     index/sign maps; fixed DOFs carry ``fixed_vals`` exactly. The true
     residual and the reference stopping metric are evaluated on host in
     f64 from a CSR of the blocks; ``device`` (CUDA by default) runs the
-    f32 band CG correction solves, and the host restarts from the exact
-    residual until the metric meets ``tol``. ``hbm`` is the device
-    memory the band planner plans against (read from the card when
-    omitted on CUDA; required on other devices). Returns
-    (x, relative_residual, iterations)."""
+    f32 correction solves -- the band engine above 4*ROW_TILE_MIN
+    unknowns with ``coords``, else ELL-AMG, or element-block Jacobi CG
+    without ``coords`` -- and the host restarts from the exact residual
+    until the metric meets ``tol``. ``hbm`` is the device memory the
+    band planner plans against (read from the card when omitted on CUDA;
+    required on other devices when the band engine is considered).
+    Returns (x, relative_residual, iterations)."""
     from ..utils import profiling
     from . import band as band_mod
     from . import blocktri as bt_mod
@@ -718,10 +960,6 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
     fixed = np.asarray(fixed_mask, bool)
     fvals = np.asarray(fixed_vals, np.float64)
     b64 = np.asarray(b, np.float64)
-    if coords is None or n <= 4 * ROW_TILE_MIN:
-        raise NotImplementedError(f"a linear solve of n={n} unknowns "
-                                  + LATER_SMALL)
-    hbm_b = device_hbm_bytes(dev, hbm)
     if inner_tol is None:
         inner_tol = max(tol, 1e-5)
 
@@ -750,13 +988,20 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
     x = g.copy() if x0 is None else np.where(fixed, fvals,
                                              np.asarray(x0, np.float64))
 
-    _prepare_band(session, At, fixed, coords, n, dev, hbm_b)
-    perm, iperm = session.perm
+    use_band = (coords is not None and n > 4 * ROW_TILE_MIN
+                and not session.band_disabled)
+    if use_band:
+        _prepare_band(session, At, fixed, coords, n, dev,
+                      device_hbm_bytes(dev, hbm))
+        use_band = session.band_amg is not None
+    engine = None if use_band else _fallback_engine(
+        session, At, blocks, fixed, coords, diag64, dev)
     band_iter = min(int(inner_iter), PASS_MAX_ITER)
 
     total_it = 0
     metric = np.inf
     best = (x, np.inf)
+    band_stalls = 0
     for _ in range(60):
         r = rhs - At @ x
         metric = float(np.sqrt(abs(np.dot(invd * r, r)) / res0))
@@ -767,6 +1012,36 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
         scale = np.abs(r).max()
         if scale == 0.0:
             break
+        if not use_band:
+            r_d = torch.as_tensor(r / scale, dtype=torch.float32, device=dev)
+            x0_d = torch.zeros(n, dtype=torch.float32, device=dev)
+            with profiling.phase("device cg"):
+                if engine[0] == "amg":
+                    d_d, _rr, it = _pcg_amg_impl(
+                        session.amg, engine[1], engine[2], r_d, inner_tol,
+                        x0_d, int(inner_iter))
+                else:
+                    d_d, _rr, it = _pcg_impl(
+                        engine[1], r_d, engine[2], engine[3], inner_tol,
+                        x0_d, int(inner_iter))
+                d_h = d_d.double().cpu().numpy()
+            total_it += it
+            if session.first_iters is None:
+                session.first_iters = it
+            session.last_iters = it
+            x = x + scale * d_h
+            new_r = rhs - At @ x
+            new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r))
+                                       / res0))
+            _trace(f"{'amg' if engine[0] == 'amg' else 'jacobi'} pass: "
+                   f"n={n} it={it} metric {metric:.3e} -> {new_metric:.3e}")
+            if new_metric >= metric * 0.9:    # dtype floor reached -- stop
+                if new_metric < best[1]:
+                    best = (x.copy(), new_metric)
+                break
+            continue
+
+        perm, iperm = session.perm
         r_d = torch.as_tensor((r / scale)[perm], dtype=torch.float32,
                               device=dev)
         # this pass only needs to contract the CURRENT host metric down
@@ -775,10 +1050,19 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
         x0_d = torch.zeros(n, dtype=torch.float32, device=dev)
         amg = session.band_amg
         lv0 = amg.levels[0]
-        engine = ("vcycle+bt" if isinstance(session.bt, bt_mod.BTSmoother)
-                  else "bt" if session.bt is not None else "vcycle")
+        bf16 = lv0.A.dense.dtype == torch.bfloat16
+        engine_b = ("fgmres" if bf16
+                    else "vcycle+bt" if isinstance(session.bt,
+                                                   bt_mod.BTSmoother)
+                    else "bt" if session.bt is not None else "vcycle")
         with profiling.phase("device cg"):
-            if isinstance(session.bt, bt_mod.BTSmoother):
+            if bf16:
+                # bf16 operator: CG's three-term recurrence diverges on
+                # the (effectively indefinite) perturbed system; GMRES(m)
+                # restarted by this refinement loop is the stable inner
+                # solver
+                d_d, _rr, it = band_mod.band_fgmres(amg, r_d, m=24)
+            elif isinstance(session.bt, bt_mod.BTSmoother):
                 # two-level DD: the in-part factor smooths, the coarse
                 # hierarchy corrects
                 d_d, _rr, it = band_mod.band_pcg(
@@ -793,7 +1077,7 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
                                                  band_iter)
             d_h = d_d.double().cpu().numpy()
         total_it += it
-        _trace(f"band pass ({engine}): n={n} it={it} rr={_rr:.3e} "
+        _trace(f"band pass ({engine_b}): n={n} it={it} rr={_rr:.3e} "
                f"tol={tol_pass:.1e}")
         if session.first_iters is None:
             session.first_iters = it
@@ -805,6 +1089,15 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
         if new_metric >= metric * 0.9:
             if new_metric < best[1]:
                 best = (x.copy(), new_metric)
+            if bf16 and band_stalls < 2:
+                # bf16 refinement can OVERSHOOT on its first passes: the
+                # correction solves (A+E) d = r, so the true residual
+                # becomes -E d, which may exceed ||r|| along the
+                # perturbation before the iteration contracts; tolerate
+                # two such passes instead of latching the engine off
+                band_stalls += 1
+                _trace(f"band stall {band_stalls} tolerated")
+                continue
             if new_metric > max(100.0 * tol, 1e-4):
                 if session.bt is not None:
                     _trace("dropping the stale factor, retrying the V-cycle")
@@ -813,10 +1106,18 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
                     # and retry with the V-cycle
                     _drop_factor(session, At, coords, dev)
                     continue
-                raise NotImplementedError(
-                    f"the band V-cycle stopped contracting (metric "
-                    f"{new_metric:.3e}); latching the band engine off for "
-                    f"the ELL-AMG engine " + LATER)
+                _trace(f"band engine latched off at metric={new_metric:.3e}")
+                _latch_off(session)
+                use_band = False
+                # diverged passes may have poisoned the iterate: restart
+                # the refinement from the best one seen
+                if best[1] < new_metric:
+                    x = best[0].copy()
+                # the gather-ELL AMG is the recovery engine; the raw
+                # element-block CG only without coordinates
+                engine = _fallback_engine(session, At, blocks, fixed, coords,
+                                          diag64, dev, latched=True)
+                continue
             break
     x, metric = best if best[1] < metric else (x, metric)
     return x, metric, total_it
