@@ -33,15 +33,22 @@ Phases (any failure exits non-zero, with no result line):
    with torch.profiler (device time by kernel, busy share); one cold
    solve with the fine level alone and one with the full hierarchy (the
    cost of the bt-alone regime's fine-only build); solve a 10k problem
-   on the card and on the CPU path and compare;
+   on the card and on the CPU path and compare, and its weighted-
+   stress-tensor force with the mask solved on the card and on the CPU
+   path (1e-6 relative);
 3b. the other planar regimes (slice 6), each through the normal entry
    points on the card with the kernels' launches counted per path: the
    device memory sizes H0 (no band storage tier) and H1 (bf16 fine
    operator) computed on the host by the port's planner for the 250k
    system and printed; the 250k problem at H0 (ELL-AMG engine, host
-   Newton chain) cold and warm; the ``post/fpproc.py`` mask solve on
-   the 250k mesh without DOF coordinates (element-block Jacobi CG;
-   also on the 10k mesh if it runs past 60 s); a 1,750-node problem
+   Newton chain) cold and warm; the postprocessor on the 250k default
+   solution (``post_250k``): ``MagPostProcessor.make_mask`` on the
+   steel, a mask solve without DOF coordinates (element-block Jacobi
+   CG; also on the 10k mesh if it runs past 60 s) whose Dirichlet set
+   must equal the one built here node for node, then the weighted-
+   stress-tensor force and torque, stored energy and area on the steel
+   and a coil, ``nodal_B`` and point values, each call's host time
+   printed; a 1,750-node problem
    (ELL-AMG, at most 4*ROW_TILE_MIN unknowns) on the card and the CPU
    path; the 250k problem at H1 (bf16 triu fine band, K5; GMRES
    passes, tolerated stalls, any latch-off) cold and warm, with K5
@@ -49,6 +56,16 @@ Phases (any failure exits non-zero, with no result line):
    linear steel curve solved, written as .ans, chained with PrevType 1
    and 2 and held to the linear twin at 1e-6). Each 250k solve is held
    to the default solve's A at 1e-5 and to the contract residual;
+3c. the user surfaces (slice 7) on the card: the TorqueBenchmark
+   (``tests/fixtures/TorqueBenchmark.fem``, 5,130 nodes) through the
+   pyFEMM verbs at rotor angles 0..90 (each torque against sin(angle)
+   within 4.2e-5 and 0.006%; at 40 degrees also the CPU path), a
+   femmcli-style Lua script (SUCCESS) and a checkpointed sweep whose
+   resumption solves nothing, launches counted per surface; the 250k
+   problem written as a .fem and solved by ``python -m xfemm_tpu_torch
+   solve`` in a subprocess on its default device, its .ans held to the
+   main path's A at 1e-5; the TorqueBenchmark and postprocessing paths
+   together must launch K1, K2 and K3+K4;
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
@@ -76,6 +93,7 @@ SEED; the problems of the main paths are deterministic.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -766,6 +784,28 @@ def small_reference(torch, nodes: int) -> None:
           f"{c.residual:.2e})", flush=True)
     if not d <= 1e-5:
         fail("card and CPU path disagree on the small problem")
+    small_stress_tensor(torch, prob, mesh, a)
+
+
+def small_stress_tensor(torch, prob, mesh, sol) -> None:
+    """The weighted-stress-tensor force on the steel (block integrals 18
+    and 19, the mask solved by ``make_mask``) with the mask solved on the
+    card and through the CPU path, on the same A: within 1e-6
+    relative."""
+    from xfemm_tpu_torch.post.fpproc import MagPostProcessor
+    forces = {}
+    for dev in ("cuda", "cpu"):
+        post = MagPostProcessor(prob, mesh, sol.A, sol.label_case,
+                                device=dev)
+        forces[dev] = [post.block_integral(k, {1}) for k in (18, 19)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(forces["cuda"],
+                                                   forces["cpu"]))
+    print(f"small problem weighted-stress-tensor force on the steel: card "
+          f"{[f'{f.real:.12e}' for f in forces['cuda']]}, CPU path "
+          f"{[f'{f.real:.12e}' for f in forces['cpu']]}, max rel diff "
+          f"{rel:.3e} (tol 1e-6)", flush=True)
+    if not rel <= 1e-6:
+        fail("card and CPU path disagree on the stress-tensor force")
 
 
 def hierarchy_cost(torch, mesh) -> None:
@@ -823,7 +863,7 @@ def small_path(torch):
     small_reference(torch, 10_000)
     clear_solver_caches(torch)
     return rows, {"250k device loop": launches,
-                  "250k host chain": host_launches}, mesh, sols[0].A
+                  "250k host chain": host_launches}, mesh, sols[0]
 
 
 class PassRecorder:
@@ -1023,13 +1063,11 @@ def ell_amg_path(torch, prob, mesh, h0, A_ref):
     return launches
 
 
-def mask_blocks(mesh):
-    """The mask solve of ``post/fpproc.py`` (``make_mask``): the curl
-    matrices Mx + My of the mesh, the nodes of the steel label fixed at
-    1, the other non-air labels' nodes and the outer boundary at 0."""
+def standin_mask_bcs(mesh):
+    """The mask's Dirichlet set built here, apart from
+    ``post/fpproc.py``: the nodes of the steel label fixed at 1, the
+    coils' nodes and the outer boundary at 0 unless already 1."""
     import numpy as np
-
-    from xfemm_tpu_torch.ops import assembly, solver
     N = mesh.num_nodes
     tris = mesh.elements
     lab = mesh.element_labels
@@ -1047,40 +1085,80 @@ def mask_blocks(mesh):
     outer = uniq[cnt == 1].ravel()
     outer = outer[vals[outer] != 1.0]
     fixed[outer] = True
-    geom = assembly.tri_geometry(mesh.nodes, tris)
-    Mx, My, _ = assembly.curl_matrices(geom)
-    blk = solver.ElementBlock(idx=tris, sign=np.ones(tris.shape),
-                              mat=-(Mx + My))
-    return [blk], fixed, vals
+    return fixed, vals
 
 
-def jacobi_solve(torch, mesh, label):
-    """One mask solve without DOF coordinates (element-block Jacobi CG)
-    on the card; checks the residual, independently on the host, and
-    the maximum principle. Returns (seconds, launches)."""
+class SolveResults:
+    """Records, while active, what each ``solver.solve`` call returned
+    (relative residual, CG iterations) and its host seconds."""
+
+    def __enter__(self):
+        from xfemm_tpu_torch.ops import solver
+        self.calls = []
+        self._real = real = solver.solve
+
+        def solve(*a, **kw):
+            t0 = time.time()
+            out = real(*a, **kw)
+            self.calls.append((float(out[1]), int(out[2]),
+                               time.time() - t0))
+            return out
+
+        solver.solve = solve
+        return self
+
+    def __exit__(self, *exc):
+        from xfemm_tpu_torch.ops import solver
+        solver.solve = self._real
+        return False
+
+
+def jacobi_solve(torch, post, label):
+    """The weighted-stress-tensor mask of the steel (label 1) through
+    ``MagPostProcessor.make_mask`` on the card: a mask solve without DOF
+    coordinates (element-block Jacobi CG). Checks its Dirichlet set
+    against ``standin_mask_bcs`` node for node, the residual,
+    independently on the host, and the maximum principle. Returns
+    (seconds, launches, mask)."""
     import numpy as np
 
-    from xfemm_tpu_torch.ops import kernels, solver
-    blocks, fixed, vals = mask_blocks(mesh)
+    from xfemm_tpu_torch.ops import assembly, kernels, solver
+    mesh = post.mesh
     N = mesh.num_nodes
+    fixed, vals = post._mask_bcs({1})
+    sf, sv = standin_mask_bcs(mesh)
+    if not (np.array_equal(fixed, sf) and np.array_equal(vals, sv)):
+        fail(f"make_mask's Dirichlet set ({label}) differs from the "
+             f"stand-in's")
+    t0 = time.time()
+    post._mask_bcs({1})
+    bcs_s = time.time() - t0
     kernels.reset_launches()
     solver.MASKED["jacobi"] = 0
-    with PassRecorder() as prec:
+    with PassRecorder() as prec, SolveResults() as rec:
         t0 = time.time()
-        x, res, its = solver.solve(blocks, np.zeros(N), fixed, vals, 1e-8)
+        x = post.make_mask({1})
         torch.cuda.synchronize()
         dt = time.time() - t0
+    (res, its, solve_s), = rec.calls
     # the solver's metric recomputed from an independent host assembly:
     # free rows r = -(A x), fixed rows exact; res0 over the eliminated
     # right-hand side (free rows -A[:, fixed] vals, fixed rows vals)
-    A = solver.blocks_to_csr(blocks, N)
+    tris = mesh.elements
+    Mx, My, _ = assembly.curl_matrices(assembly.tri_geometry(mesh.nodes,
+                                                             tris))
+    A = solver.blocks_to_csr([solver.ElementBlock(
+        idx=tris, sign=np.ones(tris.shape), mat=-(Mx + My))], N)
     free = ~fixed
     r = -(A @ x)[free]
     d = np.asarray(A.diagonal())[free]
     b0 = A[free][:, fixed] @ vals[fixed]
     check = float(np.sqrt(np.dot(r / d, r) / (np.dot(b0 / d, b0)
                                               + np.dot(vals, vals))))
-    print(f"Jacobi {label} ({N} nodes, {int(free.sum())} free): {dt:.3f} s, "
+    print(f"Jacobi {label} make_mask ({N} nodes, {int(free.sum())} free; "
+          f"Dirichlet set equal to the stand-in's): {dt:.3f} s (of it "
+          f"solver.solve {solve_s:.3f} s; the Dirichlet set alone "
+          f"{bcs_s:.3f} s), "
           f"CG iterations {its}, refinement passes {len(prec.jacobi)} "
           f"({prec.jacobi}), residual {res:.3e} (host check {check:.3e}), "
           f"masked iterations {solver.MASKED['jacobi']}, x in "
@@ -1090,20 +1168,106 @@ def jacobi_solve(torch, mesh, label):
         fail(f"the Jacobi mask solve ({label}) failed")
     if not (x.min() >= -1e-6 and x.max() <= 1.0 + 1e-6):
         fail("the mask solution leaves [0, 1]")
-    return dt, dict(kernels.LAUNCHES)
+    return dt, dict(kernels.LAUNCHES), x
 
 
-def jacobi_path(torch, mesh):
-    """Phase: element-block Jacobi CG at 250k (coords=None); the 10k
-    mesh too when the 250k solve runs past 60 s."""
-    dt, launches = jacobi_solve(torch, mesh, "250k")
+def jacobi_path(torch, post):
+    """Element-block Jacobi CG at 250k (coords=None) through
+    ``make_mask``; the 10k mesh too when the 250k solve runs past 60
+    s. Returns (seconds, launches, the mask) of the 250k solve."""
+    import numpy as np
+    dt, launches, mask = jacobi_solve(torch, post, "250k")
     if dt > 60.0:
-        from xfemm_tpu_torch.models import benchprob
         from xfemm_tpu_torch.mesh import mesher
+        from xfemm_tpu_torch.models import benchprob
+        from xfemm_tpu_torch.post.fpproc import MagPostProcessor
         print(f"the 250k Jacobi mask solve ran {dt:.1f} s (past 60 s): "
               f"the 10k mesh as well", flush=True)
-        jacobi_solve(torch, mesher.mesh_problem(benchprob.build(10_000)),
-                     "10k")
+        prob = benchprob.build(10_000)
+        mesh = mesher.mesh_problem(prob)
+        jacobi_solve(torch, MagPostProcessor(
+            prob, mesh, np.zeros(mesh.num_nodes)), "10k")
+    return dt, launches, mask
+
+
+#: points of the 250k postprocessing phase: steel, coil+, air
+POST_POINTS = ((0.0, 0.0), (0.575, 0.0), (0.0, 0.9))
+#: a line through the air above the steel and coils
+POST_LINE = ((-0.5, 0.7), (0.5, 0.7))
+
+
+def post_250k(torch, prob, mesh, sol):
+    """Phase: the postprocessor on the 250k default solution, on the
+    card: the steel's mask through ``make_mask`` (Jacobi, checked as
+    above), then every block integral type (0-25) on the steel, among
+    them the weighted-stress-tensor force (18, 19) and torque (22),
+    stored energy (2) and area (5), those five on one coil (its own
+    mask), ``nodal_B``, point values at three points and the line
+    integrals of B.n (0) and the Maxwell stress force (3) along a line
+    in the air; every call's host time printed, every result finite.
+    Returns the launches of the phase."""
+    import numpy as np
+
+    from xfemm_tpu_torch.ops import kernels
+    from xfemm_tpu_torch.post.fpproc import MagPostProcessor
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.time() - t0
+        parts = list(out.values()) if isinstance(out, dict) else (
+            list(out) if isinstance(out, tuple) else [out])
+        if not parts or not all(np.isfinite(np.asarray(v)).all()
+                                for v in parts):
+            fail(f"250k postprocessing: {name} gave {out!r:.200}")
+        return out
+
+    t0 = time.time()
+    post = MagPostProcessor(prob, mesh, sol.A, sol.label_case)
+    times["MagPostProcessor()"] = time.time() - t0
+    dt, launches, mask = jacobi_path(torch, post)
+    times["make_mask (steel)"] = dt
+    kernels.reset_launches()
+    post._mask = mask
+    vals = {}
+    for lab, name, types in ((1, "steel", range(26)),
+                             (2, "coil+", (18, 19, 22, 2, 5))):
+        if lab != 1:
+            post._mask = timed(f"make_mask ({name})",
+                               lambda: post.make_mask({lab}))
+        for k in types:
+            vals[(name, k)] = timed(f"block_integral({k}) {name}",
+                                    lambda: post.block_integral(k, {lab}))
+    nb = timed("nodal_B", post.nodal_B)
+    for x, y in POST_POINTS:
+        vals[(x, y)] = timed(f"get_point_values({x}, {y})",
+                             lambda: post.get_point_values(x, y))
+    for k in (0, 3):
+        vals[("line", k)] = timed(f"line_integral({k}) {POST_LINE}",
+                                  lambda: post.line_integral(k, POST_LINE))
+    for k, v in launches.items():
+        launches[k] = v + kernels.LAUNCHES[k]
+    print("250k postprocessing on the card (host seconds per call):",
+          flush=True)
+    for name, dt in times.items():
+        print(f"  {name}: {dt:.3f} s", flush=True)
+    for name in ("steel", "coil+"):
+        print(f"  {name}: force ({vals[(name, 18)].real:.9e}, "
+              f"{vals[(name, 19)].real:.9e}) N, torque "
+              f"{vals[(name, 22)].real:.9e} N m, energy "
+              f"{vals[(name, 2)].real:.9e} J, area "
+              f"{vals[(name, 5)].real:.9e} m^2", flush=True)
+    for x, y in POST_POINTS:
+        pv = vals[(x, y)]
+        print(f"  point ({x}, {y}): A {complex(pv['A']).real:.9e}, B "
+              f"({complex(pv['B1']).real:.9e}, {complex(pv['B2']).real:.9e}) T",
+              flush=True)
+    print(f"  line {POST_LINE}: B.n flux {vals[('line', 0)]}, Maxwell "
+          f"stress force {vals[('line', 3)]}", flush=True)
+    print(f"  nodal_B: {len(nb)} arrays of {np.shape(nb[0])}; launches "
+          f"{launches}", flush=True)
     return launches
 
 
@@ -1255,19 +1419,232 @@ def prevsoln_path(torch, mesh):
     return launches
 
 
-def regime_paths(torch, mesh, A_ref):
+def regime_paths(torch, mesh, sol_ref):
     """The regimes of slice 6 on the card: ELL-AMG at 250k, Jacobi at
-    250k, a small problem, the bf16 fine operator at 250k and previous-
-    solution inputs at 250k. Returns the launch counts per path."""
+    250k (the postprocessor's mask solve, with the rest of the 250k
+    postprocessing), a small problem, the bf16 fine operator at 250k and
+    previous-solution inputs at 250k. Returns the launch counts per
+    path."""
     from xfemm_tpu_torch.models import benchprob
     prob = benchprob.build(NODES)
+    A_ref = sol_ref.A
     h0, h1 = band_tiers(torch, prob, mesh)
     out = {"250k ELL-AMG": ell_amg_path(torch, prob, mesh, h0, A_ref)}
-    out["250k Jacobi"] = jacobi_path(torch, mesh)
+    out["250k post"] = post_250k(torch, prob, mesh, sol_ref)
     tiny_path(torch)
     out["250k bf16"] = bf16_path(torch, prob, mesh, h1, A_ref)
     out["250k PrevSoln"] = prevsoln_path(torch, mesh)
     return out
+
+
+TORQUE_FEM = os.path.join(HERE, "tests", "fixtures", "TorqueBenchmark.fem")
+
+#: the femmcli-style torque script (the reference's
+#: femmcli_TorqueBenchmark.lua shape) at two rotor angles
+TORQUE_LUA = """
+function check(value, expected, marginAbs)
+    if abs(value - expected) > marginAbs then
+        return 1
+    end
+    return 0
+end
+open("@FEM@")
+failed = 0
+for deg = 0, 30, 30 do
+    mi_modifyboundprop("AGE", 10, deg)
+    mi_modifyboundprop("AGE", 11, 0)
+    mi_analyze()
+    mi_loadsolution()
+    tq = mo_gapintegral("AGE", 0)
+    print(tq)
+    failed = failed + check(tq, sin(deg), 0.000042)
+end
+assert(failed == 0)
+write("SUCCESS\\n")
+"""
+
+
+def torque_ok(tq: float, deg: float) -> bool:
+    """The reference's TorqueBenchmark contract: sin(angle) within
+    4.2e-5 absolute and 0.006% relative (femmcli_TorqueBenchmark.lua)."""
+    ref = math.sin(math.radians(deg))
+    return abs(tq - ref) <= 4.2e-5 and (
+        ref == 0 or abs(100 * (tq - ref) / ref) <= 0.006)
+
+
+def femm_torque(femm, deg: float, **open_kw):
+    femm.opendocument(TORQUE_FEM, **open_kw)
+    femm.mi_modifyboundprop("AGE", 10, deg)
+    femm.mi_modifyboundprop("AGE", 11, 0)
+    femm.mi_createmesh()
+    femm.mi_analyze()
+    femm.mi_loadsolution()
+    return femm.mo_gapintegral("AGE", 0)
+
+
+def surfaces_torque(torch):
+    """Phase: the TorqueBenchmark through the port's user surfaces on the
+    card, each path's launches counted from 0: the pyFEMM verbs at rotor
+    angles 0..90 (torque, solve time, CG iterations and launches per
+    angle; at 40 degrees also the port's CPU path), the Lua interpreter
+    with the femmcli-style script (angles 0 and 30; SUCCESS), and a
+    checkpointed ``utils/sweep`` over three angles that a resumed sweep
+    must not re-solve. Returns the launches per path."""
+    import tempfile
+
+    from xfemm_tpu_torch import femm_compat as femm
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.mesh import mesher
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import kernels
+    from xfemm_tpu_torch.post.fpproc import MagPostProcessor
+    from xfemm_tpu_torch.scripting import lua
+    from xfemm_tpu_torch.utils import sweep
+
+    clear_solver_caches(torch)
+    os.makedirs(os.path.join(HERE, ".bench_cache"), exist_ok=True)
+    out = {}
+    kernels.reset_launches()
+    tq40 = None
+    for deg in range(0, 100, 10):
+        before = sum(kernels.LAUNCHES.values())
+        t0 = time.time()
+        tq = femm_torque(femm, deg)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        raw = femm._s().raw
+        print(f"TorqueBenchmark verbs {deg:2d} deg ({raw.mesh.num_nodes} "
+              f"nodes): torque {tq:.12f}, - sin {tq - math.sin(math.radians(deg)):.3e}; "
+              f"open + mesh + solve + post {dt:.3f} s, CG iterations "
+              f"{raw.iterations}, residual {raw.residual:.2e}, launches "
+              f"{sum(kernels.LAUNCHES.values()) - before}", flush=True)
+        if not torque_ok(tq, deg):
+            fail(f"TorqueBenchmark torque at {deg} deg misses sin(angle)")
+        if deg == 40:
+            tq40 = tq
+    out["TorqueBenchmark verbs"] = dict(kernels.LAUNCHES)
+    cpu = femm_torque(femm, 40, device="cpu",
+                      hbm_bytes=torch.cuda.mem_get_info()[1])
+    print(f"TorqueBenchmark 40 deg: |card - CPU path| torque "
+          f"{abs(tq40 - cpu):.3e}; launches {out['TorqueBenchmark verbs']}",
+          flush=True)
+
+    kernels.reset_launches()
+    lines = []
+    t0 = time.time()
+    lua.run_string(TORQUE_LUA.replace("@FEM@", TORQUE_FEM),
+                   output=lines.append)
+    print(f"TorqueBenchmark Lua script: {time.time() - t0:.3f} s, printed "
+          f"{lines}", flush=True)
+    if not lines or lines[-1] != "SUCCESS":
+        fail("the Lua TorqueBenchmark script did not print SUCCESS")
+    out["TorqueBenchmark Lua"] = dict(kernels.LAUNCHES)
+
+    def build(deg):
+        p = femfile.load(TORQUE_FEM)
+        for bp in p.lineproplist:
+            if bp.is_airgap():
+                bp.InnerAngle = deg
+        return p, mesher.mesh_problem(p)
+
+    def torque(sol):
+        return MagPostProcessor(sol.problem, sol.mesh, sol.A,
+                                sol.label_case).gap_dc_torque("AGE")
+
+    solves = []
+    real = magnetostatics.solve
+
+    def counted(*a, **kw):
+        solves.append(kw)
+        return real(*a, **kw)
+
+    kernels.reset_launches()
+    angles = [0.0, 10.0, 20.0]
+    magnetostatics.solve = counted
+    try:
+        with tempfile.TemporaryDirectory(dir=os.path.join(
+                HERE, ".bench_cache")) as ck:
+            t0 = time.time()
+            first = sweep.sweep(angles, build, torque, checkpoint=ck)
+            t1 = time.time()
+            n_first = len(solves)
+            again = sweep.sweep(angles, build, torque, checkpoint=ck)
+            t2 = time.time()
+    finally:
+        magnetostatics.solve = real
+    print(f"TorqueBenchmark sweep {angles}: {n_first} solves in "
+          f"{t1 - t0:.3f} s (warm-started), torques "
+          f"{[float(first[a]) for a in angles]}; resumed: "
+          f"{len(solves) - n_first} solves in {t2 - t1:.3f} s", flush=True)
+    if not (n_first == 3 and len(solves) == 3 and all(
+            float(again[a]) == float(first[a]) and torque_ok(float(first[a]), a)
+            for a in angles)):
+        fail("the checkpointed sweep re-solved or missed sin(angle)")
+    out["TorqueBenchmark sweep"] = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+    return out
+
+
+def cli_250k(torch, mesh, A_ref) -> None:
+    """Phase: the 250k problem written as a .fem (``femfile.dump``) and
+    solved by ``python -m xfemm_tpu_torch solve`` in a subprocess on its
+    default device (no ``--device``); the .ans read back with
+    ``io/ansfile.read_ans`` lies on the main path's mesh, with A within
+    1e-5 of max|A| of the main path's in-process solve. The kernels run
+    in the subprocess, so their launches are not counted here; its
+    phase timers (``XFEMM_TPU_PROFILE=1``, printed at its exit) are."""
+    import tempfile
+
+    import numpy as np
+
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.io import ansfile
+    from xfemm_tpu_torch.models import benchprob
+
+    clear_solver_caches(torch)
+    os.makedirs(os.path.join(HERE, ".bench_cache"), exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    env["XFEMM_TPU_PROFILE"] = "1"
+    with tempfile.TemporaryDirectory(dir=os.path.join(HERE, ".bench_cache")) \
+            as d:
+        fem = os.path.join(d, "bench250k.fem")
+        femfile.dump(benchprob.build(NODES), fem)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "xfemm_tpu_torch", "solve", fem],
+            cwd=d, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.time() - t0
+        if proc.returncode != 0:
+            fail(f"the 250k CLI solve exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        solved = [ln for ln in proc.stdout.splitlines()
+                  if ln.startswith("solved in")]
+        print(f"250k CLI subprocess output:\n{proc.stdout.strip()}",
+              flush=True)
+        g = ansfile.read_ans(os.path.join(d, "bench250k.ans"))
+        size = os.path.getsize(os.path.join(d, "bench250k.ans"))
+    # what a fresh process pays before its first solve: interpreter,
+    # imports of the solve path and the CUDA context
+    t0 = time.time()
+    subprocess.run([sys.executable, "-c", "import torch; "
+                    "import xfemm_tpu_torch.models.magnetostatics; "
+                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                   env=env, check=True, timeout=300)
+    start = time.time() - t0
+    print(f"250k CLI: a fresh process's start (imports of the solve path "
+          f"and the CUDA context) {start:.3f} s wall", flush=True)
+    dx = float(np.abs(g.mesh.nodes - mesh.nodes).max()) \
+        if g.mesh.nodes.shape == mesh.nodes.shape else float("inf")
+    dA = float(np.abs(np.real(g.values) - A_ref).max()
+               / np.abs(A_ref).max()) if dx < 1e-9 else float("inf")
+    print(f"250k CLI solve (python -m xfemm_tpu_torch solve, default "
+          f"device): {wall:.3f} s wall for the subprocess; {solved}; .ans "
+          f"{size / 1e6:.1f} MB, {g.mesh.num_nodes} nodes (max node offset "
+          f"{dx:.1e}), max|A - A_main| / max|A_main| {dA:.3e} (tol 1e-5)",
+          flush=True)
+    if not (solved and dA <= 1e-5):
+        fail("the 250k CLI solve misses the main path's solution")
 
 
 def clear_solver_caches(torch) -> None:
@@ -1710,9 +2087,17 @@ def main() -> None:
         return
     rows, paths = [], {}
     if not args.large_only:
-        rows, paths, mesh, A_default = small_path(torch)
-        paths.update(regime_paths(torch, mesh, A_default))
-        del mesh, A_default
+        rows, paths, mesh, sol_default = small_path(torch)
+        paths.update(regime_paths(torch, mesh, sol_default))
+        paths.update(surfaces_torque(torch))
+        cli_250k(torch, mesh, sol_default.A)
+        new = [v for k, v in paths.items()
+               if k.startswith("TorqueBenchmark") or k == "250k post"]
+        for name in ("band_mv", "bt_fwd", "bt_qbwd"):
+            if not any(v[name] for v in new):
+                fail(f"the surface and postprocessing paths never "
+                     f"launched {name}")
+        del mesh, sol_default
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
     paths["4.47M"] = large_launches
     check_live_hierarchy(torch, amg, bt)

@@ -60,3 +60,34 @@ print(sorted(m for m in sys.modules
     assert out == "[]", out
     assert (ROOT / "xfemm_tpu_torch" / "ops" / "csrc" / "band_sym.cu") \
         .is_file()
+
+
+#: the postprocessors and user surfaces (slice 7), each the port's own
+#: copy of the JAX package's module of the same name
+SLICE7 = ["materials.library", "geometry.editor", "mesh.renumber",
+          "models", "models.harmonic", "post.fpproc", "post.scalarproc",
+          "utils.export", "utils.plotting", "utils.sweep", "api",
+          "femm_compat", "scripting.lua", "scripting.initenv", "__main__"]
+
+
+def test_slice7_modules_stand_alone():
+    """Every module of the postprocessor and user-surface slice imports
+    without jax or the JAX package, and ships its data files."""
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(ROOT)!r})
+for name in {SLICE7!r}:
+    importlib.import_module("xfemm_tpu_torch." + name)
+from xfemm_tpu_torch.materials import library
+assert len(library.builtin()) > 100
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "xfemm_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]", out
+    for name in SLICE7:
+        path = ROOT / "xfemm_tpu_torch" / (name.replace(".", "/") + ".py")
+        if not path.exists():
+            path = path.with_suffix("") / "__init__.py"
+        assert path.is_file(), name
