@@ -66,6 +66,25 @@ Phases (any failure exits non-zero, with no result line):
    solve`` in a subprocess on its default device, its .ans held to the
    main path's A at 1e-5; the TorqueBenchmark and postprocessing paths
    together must launch K1, K2 and K3+K4;
+3d. axisymmetric magnetostatics and AC (slice 8): the JAX package's
+   ac125k row (``benchprob.build_ac(125_000)``, 50 Hz eddy currents)
+   through ``models.solve`` cold and warm (the regime, engine calls,
+   phase timers, peak memory; the residual, no latch-off to Jacobi
+   pairs, launches of K1, K2 and K3+K4, and the solution against a
+   host ``spsolve`` of the same complex system at 1e-6), K1 on the Ar
+   and Ai bands and the shifted levels and the sweeps on the live
+   factor against their plain versions, the complex apply's four K1
+   calls against one ``torch.bmm`` per band over the (xr, xi) window;
+   AxiSolenoid.fem refined to ~250k nodes cold and warm on the device
+   loop (``newton.run`` with ``axi=True``; its cached band and factor
+   held against the plain kernels) and on the host chain, within 1e-5;
+   the five reference fixtures
+   (AxiSolenoid, ACtest, ACwound, ACaxi, ACaxi400) on the card against
+   their golden .ans and the CPU path at 1e-6, with ACwound's block
+   integrals and ACaxi400's circuit properties against the reference
+   femmcli's values; ACtest through the pyFEMM verbs, card against CPU
+   path; the main path's K1 also timed as ``torch.bmm`` over its
+   windows and against a cuSPARSE CSR SpMV of the same matrix;
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
@@ -469,6 +488,7 @@ class NewtonRecorder:
         self.host = []          # CG iterations per host pass
         self.dev = []           # (name, steps, CG its, res, relax)
         self.ptrs = []          # fine band data_ptr at each scatter step
+        self.axi = []           # the axi switch of each device dispatch
         self._events = []       # (start, end) per in-place refresh
 
     def __enter__(self):
@@ -489,6 +509,7 @@ class NewtonRecorder:
             def wrapped(dn, amg, *a, **kw):
                 if name == "run_scatter":
                     self.ptrs.append(amg.levels[0].A.dense.data_ptr())
+                self.axi.append(bool(kw.get("axi", False)))
                 out = real[name](dn, amg, *a, **kw)
                 st = out[-1].tolist()
                 self.dev.append((name, int(st[3]), int(st[4]), st[1],
@@ -689,6 +710,50 @@ def sidecar_cost(torch, band, dn) -> None:
           f"band_apply with the sidecar {t_both:.4f} ms", flush=True)
 
 
+def band_windows(torch, band, xs):
+    """The (NT, W, C) windows of the zero-padded columns ``xs`` (ncols, C)
+    that K1's band rows multiply: an ``as_strided`` view whose windows
+    start every ``cchunk`` rows (``kernels.band_mv_plain``'s layout)."""
+    NT, R, W = band.dense.shape
+    cc = band.cchunk
+    C = xs.shape[1]
+    lpad = max(0, -band.shift0) * cc
+    total = (NT + max(0, band.shift0) + W // cc) * cc + lpad
+    xpad = torch.zeros((total, C), dtype=torch.float32, device=xs.device)
+    xpad[lpad:lpad + band.ncols] = xs[:band.ncols]
+    base = (band.shift0 + lpad // cc) * cc
+    return xpad.as_strided((NT, W, C), (cc * C, C, 1), base * C)
+
+
+def csr_spmv(torch, band, x) -> None:
+    """A cuSPARSE CSR SpMV (``torch.sparse_csr_tensor @ x``) of the
+    band's own matrix (its nonzero entries, in the band ordering) beside
+    K1 on the same x: what the dense band format costs on this card."""
+    from xfemm_tpu_torch.ops import kernels
+    d = band.dense
+    NT, R, W = d.shape
+    t, r, w = (d != 0).nonzero(as_tuple=True)
+    rows = t * R + r
+    cols = (t + band.shift0) * band.cchunk + w
+    A = torch.sparse_coo_tensor(torch.stack([rows, cols]), d[t, r, w],
+                                (NT * R, band.ncols)).coalesce() \
+        .to_sparse_csr()
+    y = A @ x
+    k = kernels.band_mv(d, x, band.shift0, band.cchunk, band.ncols)
+    ms = median_ms(lambda: A @ x)
+    k_ms = median_ms(lambda: kernels.band_mv(d, x, band.shift0, band.cchunk,
+                                             band.ncols))
+    nbytes = A._nnz() * 8 + 4 * (NT * R + 1) + 8 * band.ncols
+    print(f"main-path cuSPARSE CSR SpMV of the band's matrix: {A._nnz()} "
+          f"nonzeros ({nbytes / 1e6:.1f} MB of CSR and vectors, band "
+          f"{d.numel() * d.element_size() / 1e9:.3f} GB), median "
+          f"{ms:.4f} ms (CSR bytes bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms) vs K1 {k_ms:.4f} ms; rel diff {rel_err(y, k):.3e}",
+          flush=True)
+    del A, t, r, w, rows, cols
+    torch.cuda.empty_cache()
+
+
 def measure_on_main_path(torch, band, bt):
     """Each kernel and its plain version on the main path's band and
     factor: errors, median times, bounds, library times."""
@@ -701,6 +766,12 @@ def measure_on_main_path(torch, band, bt):
     NT, R, W = d.shape
     k = kernels.band_mv(d, x, band.shift0, band.cchunk, band.ncols)
     p = kernels.band_mv_plain(d, x, band.shift0, band.cchunk, band.ncols)
+    # the one-call library equivalent: torch.bmm over the windows of the
+    # zero-padded x (an as_strided view, no copy)
+    win = band_windows(torch, band, x[:, None])
+    lib_y = torch.bmm(d, win)[:, :, 0].reshape(-1)
+    print(f"main-path K1 library torch.bmm(band, x windows): rel diff to "
+          f"K1 {rel_err(lib_y, k):.3e}", flush=True)
     rows.append(dict(
         name="band_mv", err=float((k - p).abs().max()), rel=rel_err(k, p),
         ms=median_ms(lambda: kernels.band_mv(d, x, band.shift0, band.cchunk,
@@ -709,7 +780,8 @@ def measure_on_main_path(torch, band, bt):
             d, x, band.shift0, band.cchunk, band.ncols), reps=7),
         bound=bound_ms(d.numel() * d.element_size() + 4 * band.ncols
                        + 4 * NT * R, 2.0 * NT * R * W),
-        library_ms=None))
+        library_ms=median_ms(lambda: torch.bmm(d, win))))
+    csr_spmv(torch, band, x)
     NB, b, _ = bt.Sinv.shape
     rs = torch.randn((NB, b), generator=gen, device="cuda")
     ys = kernels.bt_fwd(bt.G, rs)
@@ -1647,11 +1719,502 @@ def cli_250k(torch, mesh, A_ref) -> None:
         fail("the 250k CLI solve misses the main path's solution")
 
 
+AC_NODES = 125_000        # benchprob.build_ac target (perf/measure.py ac125k)
+AXI_AREA_SCALE = 0.0151   # AxiSolenoid.fem's label MaxArea x this: ~250k nodes
+FIXTURES = os.path.join(HERE, "tests", "fixtures")
+AC_FIXTURES = ("AxiSolenoid", "ACtest", "ACwound", "ACaxi", "ACaxi400")
+#: the reference femmcli's postprocessor values on the golden solutions
+#: (tests/test_harmonic.py, tests/test_harmonicaxi.py)
+REF_ACWOUND = {2: 1.273529694319e-04, 17: 1.273529694319e-04,
+               4: 1.097620254739e+00,
+               0: 4.848451777805e-03 - 5.719153002085e-04j, 7: 1e3}
+REF_ACAXI400 = {"amps": 100 + 30j,
+                "volts": -0.000240362959638525 + 0.005195904737962252j,
+                "flux": 1.963352852159631e-06 + 4.47608640949693e-07j}
+
+
+class ACRecorder:
+    """Records, while active, what the AC solves did: every fused GMRES
+    call (``band.band_csym_fgmres_fused``: restart length, factor or
+    V-cycle, iterations), every Jacobi-pairs pass
+    (``solver._pcg_csym_pairs``), the host refinement passes and, with
+    ``keep``, each ``solver.solve_complex`` call's system and solution
+    (for the host reference), and the solver's trace messages (a dropped
+    factor, a latch-off). It wraps the functions and restores them."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.gmres = []         # (m, with factor, iterations)
+        self.pairs = []         # iterations per Jacobi-pairs pass
+        self.systems = []       # (blocks, b, fixed, fixed_vals, x)
+        self.messages = []
+
+    def __enter__(self):
+        from xfemm_tpu_torch.ops import band, solver
+        self._saved = [(band, "band_csym_fgmres_fused",
+                        band.band_csym_fgmres_fused),
+                       (solver, "_pcg_csym_pairs", solver._pcg_csym_pairs),
+                       (solver, "solve_complex", solver.solve_complex),
+                       (solver, "_trace", solver._trace)]
+        real = {name: fn for _m, name, fn in self._saved}
+
+        def fused(*a, m=24, bt=None, **kw):
+            out = real["band_csym_fgmres_fused"](*a, m=m, bt=bt, **kw)
+            self.gmres.append((m, bt is not None, int(out[3])))
+            return out
+
+        def pairs(*a, **kw):
+            out = real["_pcg_csym_pairs"](*a, **kw)
+            self.pairs.append(int(out[3]))
+            return out
+
+        def solve_complex(blocks, b, fixed_mask, fixed_vals, tol, **kw):
+            out = real["solve_complex"](blocks, b, fixed_mask, fixed_vals,
+                                        tol, **kw)
+            if self.keep:
+                self.systems.append((blocks, b, fixed_mask, fixed_vals,
+                                     out[0]))
+            return out
+
+        def trace(msg):
+            self.messages.append(msg)
+            real["_trace"](msg)
+
+        band.band_csym_fgmres_fused = fused
+        solver._pcg_csym_pairs = pairs
+        solver.solve_complex = solve_complex
+        solver._trace = trace
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        return False
+
+    def engines(self) -> list:
+        out = sorted({f"band GMRES({m})" + (" + factor" if f else
+                                            " + V-cycle")
+                      for m, f, _ in self.gmres})
+        return out + (["Jacobi pairs"] if self.pairs else [])
+
+    def summary(self) -> str:
+        its = sum(g[2] for g in self.gmres)
+        cycles = sum(g[2] // g[0] for g in self.gmres)
+        return (f"engines {self.engines()}, GMRES iterations {its} in "
+                f"{cycles} cycles over {len(self.gmres)} host refinement "
+                f"passes, Jacobi-pairs passes {self.pairs}, "
+                f"dropped factor {sum('dropping' in m for m in self.messages)}"
+                f", latch-offs {sum('latched off' in m for m in self.messages)}")
+
+
+def ac_entry():
+    from xfemm_tpu_torch.ops import solver
+    (ent,) = solver._CBAND_CACHE.values()
+    return ent
+
+
+def ac_host_reference(system):
+    """The AC system solved on the host by ``scipy.sparse.linalg.spsolve``
+    from the complex CSR assembled from the same blocks (Dirichlet rows
+    as identity rows, ``b - A g`` for nonzero fixed values). Returns
+    (relative distance of the solve's x, seconds)."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from xfemm_tpu_torch.ops import solver
+    blocks, b, fixed_mask, fixed_vals, x = system
+    fixed = np.asarray(fixed_mask, bool)
+    fv = np.asarray(fixed_vals, complex)
+    n = len(b)
+    t0 = time.time()
+    At = solver._ac_csr(blocks, n, fixed)
+    g = np.where(fixed, fv, 0.0)
+    Ag = np.zeros(n, complex)
+    for blk in blocks:
+        idx = np.asarray(blk.idx)
+        sgn = np.asarray(blk.sign, float)
+        ye = np.einsum("ekl,el->ek", np.asarray(blk.mat, complex),
+                       sgn * g[idx])
+        np.add.at(Ag, idx.reshape(-1), (sgn * ye).reshape(-1))
+    rhs = np.where(fixed, fv, np.asarray(b, complex) - Ag)
+    ref = spla.spsolve(At.tocsc(), rhs)
+    dt = time.time() - t0
+    return float(np.abs(x - ref).max() / np.abs(ref).max()), dt
+
+
+def ac_apply_cost(torch, ent) -> None:
+    """The complex operator apply of the AC engine on its Ar and Ai
+    bands: the four K1 calls it makes, K1 alone, and one ``torch.bmm``
+    per band over a two-column (xr, xi) window (the single-pass
+    alternative), checked against the four calls."""
+    from xfemm_tpu_torch.ops import band as band_mod
+    from xfemm_tpu_torch.ops import kernels
+    Aop, Ai = ent["Aop"], ent["Ai"]
+    n = Aop.ncols
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    xr = torch.randn(n, generator=gen, device="cuda")
+    xi = torch.randn(n, generator=gen, device="cuda")
+    opc = band_mod._complex_op(Aop, Ai, n)
+    yr, yi = opc(xr, xi)
+    win = band_windows(torch, Aop, torch.stack([xr, xi], dim=1))
+
+    def two_bmm():
+        return torch.bmm(Aop.dense, win), torch.bmm(Ai.dense, win)
+
+    pr, pi = two_bmm()
+    pr = pr.reshape(-1, 2)[:n]
+    pi = pi.reshape(-1, 2)[:n]
+    err = max(rel_err(pr[:, 0] - pi[:, 1], yr), rel_err(pr[:, 1] + pi[:, 0],
+                                                        yi))
+    before = dict(kernels.LAUNCHES)
+    t4 = median_ms(lambda: opc(xr, xi))
+    t1 = median_ms(lambda: kernels.band_mv(Aop.dense, xr, Aop.shift0,
+                                           Aop.cchunk, Aop.ncols))
+    tb = median_ms(two_bmm)
+    kernels.LAUNCHES.update(before)
+    d = Aop.dense
+    print(f"ac125k complex apply on the Ar/Ai bands {tuple(d.shape)} "
+          f"(2 x {d.numel() * d.element_size() / 1e9:.3f} GB): four K1 "
+          f"calls {t4:.4f} ms (K1 alone {t1:.4f} ms); one torch.bmm per "
+          f"band over the (xr, xi) window {tb:.4f} ms (rel diff {err:.3e}, "
+          f"tol {TOL:g}); bound of one pass over both bands "
+          f"{2 * d.numel() * d.element_size() / HBM_BYTES_PER_S * 1e3:.4f} "
+          f"ms", flush=True)
+    if not err <= TOL:
+        fail("the four K1 calls of the complex apply disagree with "
+             "torch.bmm")
+
+
+def ac_125k(torch) -> dict:
+    """Phase: the JAX package's ac125k row (``benchprob.build_ac(125_000)``,
+    50 Hz, linear conductive steel, Precision 1e-8) through
+    ``models.solve`` on the card, cold then warm, launches counted from 0
+    over both. Prints the regime (the two operator bands, the shifted
+    hierarchy's levels, the factor's b and NB, the restart length), the
+    engine calls, phase timers and peak memory; holds the cold solution
+    against a host ``spsolve`` of the same complex system at 1e-6;
+    holds K1 on the Ar and Ai bands and every shifted level, and the
+    sweeps on the live factor, against their plain versions; fails on a
+    residual above Precision, a latch-off to Jacobi pairs, a kernel of
+    K1, K2, K3+K4 never launched or a kernel check. Returns the
+    launches."""
+    import numpy as np
+
+    from xfemm_tpu_torch import models
+    from xfemm_tpu_torch.models import benchprob
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.utils import profiling
+
+    clear_solver_caches(torch)
+    t0 = time.time()
+    prob = benchprob.build_ac(AC_NODES)
+    mesh = get_mesh(prob, AC_NODES)
+    print(f"ac125k mesh: {mesh.num_nodes} nodes, {mesh.num_elements} "
+          f"elements ({time.time() - t0:.1f} s incl. cache)", flush=True)
+    profiling.ENABLED = True
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    sols, recs = [], []
+    for label in ("cold", "warm"):
+        profiling.reset()
+        with ACRecorder(keep=label == "cold") as rec:
+            t0 = time.time()
+            sol = models.solve(prob, mesh)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        sols.append(sol)
+        recs.append(rec)
+        print(f"ac125k {label} solve: {dt:.3f} s, residual "
+              f"{sol.residual:.3e}, iterations {sol.iterations}; "
+              f"{rec.summary()}", flush=True)
+        print(profiling.report(), flush=True)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    profiling.ENABLED = False
+    ent = ac_entry()
+    if ent is None or any(r.pairs for r in recs):
+        fail("the ac125k solve latched off to Jacobi pairs")
+    amg = ent["amg"]
+    levels = [tuple(lv.A.dense.shape) for lv in amg.levels]
+    triu = [lv.dvec is not None for lv in amg.levels]
+    bottom = (f"dense inverse {tuple(amg.coarse_inv.shape)}"
+              if amg.bt_coarse is None else f"block-tridiagonal "
+              f"{tuple(amg.bt_coarse.factor.Sinv.shape)}")
+    print(f"ac125k regime: operator bands Ar {tuple(ent['Aop'].dense.shape)} "
+          f"and Ai {tuple(ent['Ai'].dense.shape)} (R=cchunk="
+          f"{ent['Aop'].cchunk}); shifted hierarchy levels {levels} (triu "
+          f"{triu}), bottom {bottom}; factor (b, NB) "
+          f"{ent.get('bt_shape')} "
+          f"{'kept' if ent['bt'] is not None else 'DROPPED'}; GMRES m "
+          f"{sorted({g[0] for r in recs for g in r.gmres})}; peak device "
+          f"memory {peak / 1e9:.2f} GB; launches over both solves "
+          f"{launches}", flush=True)
+    for sol in sols:
+        if not sol.residual <= prob.Precision:
+            fail(f"ac125k residual {sol.residual:.3e} above "
+                 f"{prob.Precision:g}")
+        if sol.A.shape != (mesh.num_nodes,) or not np.isfinite(sol.A).all():
+            fail("ac125k A is not a finite per-node vector")
+    for name in ("band_mv", "bt_fwd", "bt_qbwd"):
+        if not launches[name]:
+            fail(f"the ac125k solves never launched {name}")
+    err, sec = ac_host_reference(recs[0].systems[0])
+    dA = float(np.abs(sols[0].A - sols[1].A).max() / np.abs(sols[0].A).max())
+    print(f"ac125k cold solve vs host spsolve of the same complex system: "
+          f"max rel diff {err:.3e} (tol 1e-6; spsolve {sec:.1f} s); cold vs "
+          f"warm {dA:.3e}", flush=True)
+    if not (err <= 1e-6 and dA <= 1e-6):
+        fail("the ac125k solve misses the host reference")
+    check_live_hierarchy(torch, "ac125k", amg, ent["bt"],
+                         (("Ar", ent["Aop"]), ("Ai", ent["Ai"])))
+    ac_apply_cost(torch, ent)
+    clear_solver_caches(torch)
+    return launches
+
+
+def axi_problem(scale: float):
+    from xfemm_tpu_torch.geometry import femfile
+    p = femfile.load(os.path.join(FIXTURES, "AxiSolenoid.fem"))
+    for lab in p.labellist:
+        lab.MaxArea *= scale
+    return p
+
+
+def axi_250k(torch) -> tuple:
+    """Phase: AxiSolenoid.fem (a nonlinear steel rod on the axis inside a
+    coil) with every block label's MaxArea scaled by AXI_AREA_SCALE, so
+    the port's mesher gives ~250k nodes: a cold and a warm solve on the
+    default path, which must run the device loop (``newton.run`` with
+    ``axi=True``), then the same solve on the host Newton chain
+    (``XFEMM_TPU_NO_DEVICE_NEWTON=1``), within 1e-5 of max|A| of the
+    loop's. The loop's cached band hierarchy and factor are held against
+    the kernels' plain versions between the two chains. Returns the
+    launches of the loop's two solves and of the host chain's."""
+    import numpy as np
+
+    from xfemm_tpu_torch import models
+    from xfemm_tpu_torch.mesh import mesher
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.utils import profiling
+
+    clear_solver_caches(torch)
+    prob = axi_problem(AXI_AREA_SCALE)
+    t0 = time.time()
+    mesh = mesher.mesh_problem(prob)
+    print(f"axi250k: AxiSolenoid.fem, label MaxArea x {AXI_AREA_SCALE}: "
+          f"{mesh.num_nodes} nodes, {mesh.num_elements} elements (meshed "
+          f"in {time.time() - t0:.1f} s)", flush=True)
+    profiling.ENABLED = True
+    out = {}
+    sols = {}
+    for chain in ("device loop", "host chain"):
+        if chain == "host chain":
+            clear_solver_caches(torch)
+            os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
+        kernels.reset_launches()
+        try:
+            for label in (("cold", "warm") if chain == "device loop"
+                          else ("cold",)):
+                profiling.reset()
+                with NewtonRecorder(torch) as rec:
+                    t0 = time.time()
+                    sol = models.solve(prob, mesh)
+                    torch.cuda.synchronize()
+                    dt = time.time() - t0
+                sols.setdefault(chain, []).append(sol)
+                print(f"axi250k {chain}, {label} solve: {dt:.3f} s, "
+                      f"residual {sol.residual:.3e}, Newton iterations "
+                      f"{sol.newton_iterations}, CG iterations "
+                      f"{sol.iterations}; {rec.summary(profiling)}",
+                      flush=True)
+                print(profiling.report(), flush=True)
+                if chain == "device loop" and not (
+                        rec.dev and all(rec.axi)
+                        and {d[0] for d in rec.dev} == {"run"}):
+                    fail(f"the axi250k {label} solve did not run the device "
+                         f"loop with axi=True: {rec.dev} {rec.axi}")
+                if chain == "host chain" and rec.dev:
+                    fail("the axi250k host-chain solve called the loop")
+                if not (sol.residual <= prob.Precision
+                        and np.isfinite(sol.A).all()):
+                    fail(f"axi250k residual {sol.residual:.3e}")
+        finally:
+            os.environ.pop("XFEMM_TPU_NO_DEVICE_NEWTON", None)
+        out[f"axi250k {chain}"] = dict(kernels.LAUNCHES)
+        print(f"axi250k {chain} launches: {out[f'axi250k {chain}']}",
+              flush=True)
+        if chain == "device loop":
+            (ent,) = solver._BAND_CACHE.values()
+            check_live_hierarchy(torch, "axi250k", ent["band_amg"],
+                                 ent["bt"])
+    profiling.ENABLED = False
+    ref = sols["device loop"][0].A
+    dA = max(float(np.abs(s.A - ref).max() / np.abs(ref).max())
+             for s in sols["device loop"][1:] + sols["host chain"])
+    print(f"axi250k: device loop vs host chain and cold vs warm: max rel "
+          f"diff {dA:.3e} (tol 1e-5)", flush=True)
+    if not dA <= 1e-5:
+        fail("the axi250k device loop and host chain disagree")
+    clear_solver_caches(torch)
+    return out
+
+
+def golden_distance(stem, mesh, sol) -> tuple:
+    """(max |A - A_golden| / max |A_golden|, label cases match)."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from xfemm_tpu_torch.io import ansfile
+    g = ansfile.read_ans(os.path.join(FIXTURES, f"{stem}.ans.golden"))
+    d, idx = cKDTree(mesh.nodes).query(g.mesh.nodes)
+    if d.max() > 1e-12:
+        fail(f"{stem}: the fixture mesh is not the golden's")
+    err = float(np.abs(sol.A[idx] - g.values).max() / np.abs(g.values).max())
+    lc = bool(np.allclose(sol.label_case, g.label_case, rtol=1e-6,
+                          atol=1e-12))
+    return err, lc
+
+
+def fixtures_ac_axi(torch) -> dict:
+    """Phase: the five axisymmetric and AC reference fixtures (premeshed)
+    through ``models.solve`` on the card and through the port's CPU
+    path: each within 1e-6 of max|A| of its golden .ans and of the CPU
+    path, label cases as the golden's; the engine of each printed;
+    ACwound's block integrals and ACaxi400's circuit properties through
+    ``MagPostProcessor`` against the reference femmcli's values. Returns
+    the launches over the five card solves."""
+    import numpy as np
+
+    from xfemm_tpu_torch import models
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.mesh.meshdata import read_mesh_files
+    from xfemm_tpu_torch.ops import kernels
+    from xfemm_tpu_torch.post.fpproc import MagPostProcessor
+
+    clear_solver_caches(torch)
+    hbm = torch.cuda.mem_get_info()[1]
+    kernels.reset_launches()
+    for stem in AC_FIXTURES:
+        fem = os.path.join(FIXTURES, f"{stem}.fem")
+        mesh = read_mesh_files(os.path.join(FIXTURES, stem))
+        p = femfile.load(fem)
+        before = dict(kernels.LAUNCHES)
+        with ACRecorder() as rec, NewtonRecorder(torch) as nrec:
+            t0 = time.time()
+            sol = models.solve(p, mesh)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        cpu = models.solve(femfile.load(fem), mesh, device="cpu",
+                           hbm_bytes=hbm)
+        err, lc = golden_distance(stem, mesh, sol)
+        dc = float(np.abs(sol.A - cpu.A).max() / np.abs(cpu.A).max())
+        engine = rec.engines() if rec.gmres or rec.pairs else (
+            f"Newton: {rec_chain(nrec)}")
+        print(f"{stem} ({mesh.num_nodes} nodes) on the card: {dt:.3f} s, "
+              f"residual {sol.residual:.2e}, iterations {sol.iterations}, "
+              f"engine {engine}; vs golden {err:.3e}, label cases "
+              f"{'match' if lc else 'DIFFER'}; card vs CPU path {dc:.3e}; "
+              f"launches "
+              f"{ {k: v - before[k] for k, v in kernels.LAUNCHES.items()} }",
+              flush=True)
+        if not (sol.residual <= p.Precision and err <= 1e-6 and lc
+                and dc <= 1e-6):
+            fail(f"{stem} misses its golden solution or the CPU path")
+        post = MagPostProcessor(p, mesh, sol.A, sol.label_case)
+        if stem == "ACwound":
+            coil = {k for k, lab in enumerate(post.labels)
+                    if abs(lab.x) < 1e-9 and abs(lab.y) < 1e-9}
+            got = {k: complex(post.block_integral(k, coil)) for k in REF_ACWOUND}
+            rel = {k: abs((got[k] if k == 0 else got[k].real) - v) / abs(v)
+                   for k, v in REF_ACWOUND.items()}
+            print(f"ACwound coil block integrals {got}; rel to femmcli "
+                  f"{rel}", flush=True)
+            if max(rel.values()) > 2e-4:
+                fail("ACwound block integrals miss the reference's")
+        if stem == "ACaxi400":
+            got = dict(zip(("amps", "volts", "flux"),
+                           map(complex, post.circuit_properties("I1"))))
+            rel = {k: abs(got[k] - v) / abs(v)
+                   for k, v in REF_ACAXI400.items()}
+            print(f"ACaxi400 circuit I1 {got}; rel to femmcli {rel}",
+                  flush=True)
+            if max(rel.values()) > 1e-5:
+                fail("ACaxi400 circuit properties miss the reference's")
+    out = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+    return out
+
+
+def rec_chain(nrec) -> str:
+    names = sorted({d[0] for d in nrec.dev})
+    return (f"device loop {names}, axi {sorted(set(nrec.axi))}"
+            if nrec.dev else "host chain")
+
+
+def ac_verbs(torch) -> dict:
+    """Phase: ACtest.fem through the pyFEMM verbs on the card (open,
+    ``mi_createmesh``, ``mi_analyze``, ``mi_loadsolution``, the steel's
+    resistive losses by ``mo_blockintegral(4)``, the copper's circuit
+    properties) and on the CPU path: within 1e-6 relative. Returns the
+    card round trip's launches."""
+    from xfemm_tpu_torch import femm_compat as femm
+    from xfemm_tpu_torch.ops import kernels
+
+    clear_solver_caches(torch)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kw = {} if dev == "cuda" else dict(
+            device="cpu", hbm_bytes=torch.cuda.mem_get_info()[1])
+        kernels.reset_launches()
+        t0 = time.time()
+        femm.opendocument(os.path.join(FIXTURES, "ACtest.fem"), **kw)
+        femm.mi_createmesh()
+        femm.mi_analyze()
+        femm.mi_loadsolution()
+        femm.mo_selectblock(3.5, 0.0)
+        loss = complex(femm.mo_blockintegral(4))
+        femm.mo_clearblock()
+        props = tuple(map(complex, femm.mo_getcircuitproperties("I1")))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+        out[dev] = (loss, *props)
+        print(f"ACtest verbs ({dev}): {time.time() - t0:.3f} s for open + "
+              f"mesh ({femm._s().raw.mesh.num_nodes} nodes) + solve + post;"
+              f" steel losses {loss:.9e} W, I1 (amps, volts, flux) {props}",
+              flush=True)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"ACtest verbs: card vs CPU path max rel diff {rel:.3e} (tol "
+          f"1e-6); launches {launches}", flush=True)
+    if not (rel <= 1e-6 and out["cuda"][0].real > 0):
+        fail("the ACtest verb round trip misses the CPU path")
+    clear_solver_caches(torch)
+    return launches
+
+
+def ac_axi_paths(torch) -> dict:
+    """Slice 8's paths, each with its launches counted from 0: the 125k
+    eddy-current solve, the ~250k axisymmetric solve (device loop and
+    host chain), the five reference fixtures and the AC verb round
+    trip. Reports K5's launches on them (the shifted hierarchy plans no
+    triu level unless its levels print one)."""
+    paths = {"ac125k": ac_125k(torch)}
+    paths.update(axi_250k(torch))
+    paths["AC/axi fixtures"] = fixtures_ac_axi(torch)
+    paths["ACtest verbs"] = ac_verbs(torch)
+    print(f"K5 (band_sym) launches on the AC and axisymmetric paths: "
+          f"{ {k: v['band_sym'] for k, v in paths.items()} }", flush=True)
+    return paths
+
+
 def clear_solver_caches(torch) -> None:
     from xfemm_tpu_torch.models import magnetostatics
     from xfemm_tpu_torch.ops import solver
     solver._BAND_CACHE.clear()
     solver._PATTERN_CACHE.clear()
+    solver._CBAND_CACHE.clear()
+    solver._AC_PATTERN_CACHE.clear()
     magnetostatics._PACK_CACHE.clear()
     torch.cuda.empty_cache()
 
@@ -1768,41 +2331,50 @@ def large_path(torch, nodes: int):
     return launches, amg, bt
 
 
-def check_live_hierarchy(torch, amg, bt) -> None:
-    """Every kernel of the large path against its plain version on the
-    live tensors of the 4.47M solve: each level's operator band (K5 where
-    it is stored triu, else K1), its bf16 smoothing copy and its bf16
-    prolongator band (K1), at TOL of max|y|; and the live BTSmoother's
-    sweeps (bt_fwd, bt_qbwd), step by step at TOL and chained at
-    BF16_CHAIN_TOL."""
+def check_live_hierarchy(torch, label: str, amg, bt, extra=()) -> None:
+    """Every kernel of a path against its plain version on the path's
+    live tensors: the bands in ``extra`` ((name, band) pairs, K1) and
+    each level of ``amg``: its operator band (K5 where it is stored
+    triu, else K1), its bf16 smoothing copy and its prolongator band
+    (K1), at TOL of max|y|; and the sweeps of the factor or smoother
+    ``bt`` (bt_fwd, bt_qbwd), step by step at TOL and chained at TOL
+    (BF16_CHAIN_TOL for a bf16 factor)."""
     from xfemm_tpu_torch.ops import kernels
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
+    bands = [(name, bm, None) for name, bm in extra]
     for i, lv in enumerate(amg.levels):
         for name, bm in (("A", lv.A), ("Abf", lv.Abf), ("P", lv.P)):
-            if bm is None:
-                continue
-            d = bm.dense
-            x = torch.randn(bm.ncols, generator=gen, device="cuda")
-            args = (bm.shift0, bm.cchunk, bm.ncols)
-            if name != "P" and lv.dvec is not None:
-                kern = "K5"
-                y = kernels.band_sym(d, lv.dvec, x, *args)
-                ref = kernels.band_sym_plain(d, lv.dvec, x, *args)
-            else:
-                kern = "K1"
-                y = kernels.band_mv(d, x, *args)
-                ref = kernels.band_mv_plain(d, x, *args)
-            err = rel_err(y, ref)
-            print(f"live L{i} {name} {kern} {tuple(d.shape)} "
-                  f"{str(d.dtype)[6:]} cchunk={bm.cchunk}: max rel err "
-                  f"{err:.3e} (tol {TOL:g})", flush=True)
-            if not err <= TOL:
-                fail(f"{kern} disagrees with its plain version on the live "
-                     f"level {i} band {name}")
-            del y, ref
+            if bm is not None:
+                bands.append((f"L{i} {name}", bm,
+                              lv.dvec if name != "P" else None))
+    for name, bm, dvec in bands:
+        d = bm.dense
+        x = torch.randn(bm.ncols, generator=gen, device="cuda")
+        args = (bm.shift0, bm.cchunk, bm.ncols)
+        if dvec is not None:
+            kern = "K5"
+            y = kernels.band_sym(d, dvec, x, *args)
+            ref = kernels.band_sym_plain(d, dvec, x, *args)
+        else:
+            kern = "K1"
+            y = kernels.band_mv(d, x, *args)
+            ref = kernels.band_mv_plain(d, x, *args)
+        err = rel_err(y, ref)
+        print(f"{label} {name} {kern} {tuple(d.shape)} {str(d.dtype)[6:]} "
+              f"cchunk={bm.cchunk}: max rel err {err:.3e} (tol {TOL:g})",
+              flush=True)
+        if not err <= TOL:
+            fail(f"{kern} disagrees with its plain version on the {label} "
+                 f"band {name}")
+        del y, ref
     torch.cuda.empty_cache()
-    check_sweeps(kernels, torch, gen, bt, "live BTSmoother", BF16_CHAIN_TOL)
+    if bt is None:
+        print(f"{label}: no factor kept, no sweeps to check", flush=True)
+        return
+    chain_tol = BF16_CHAIN_TOL if bt.G.dtype == torch.bfloat16 else TOL
+    check_sweeps(kernels, torch, gen, bt, f"{label} {type(bt).__name__}",
+                 chain_tol)
     torch.cuda.empty_cache()
 
 
@@ -2097,10 +2669,11 @@ def main() -> None:
             if not any(v[name] for v in new):
                 fail(f"the surface and postprocessing paths never "
                      f"launched {name}")
+        paths.update(ac_axi_paths(torch))
         del mesh, sol_default
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
     paths["4.47M"] = large_launches
-    check_live_hierarchy(torch, amg, bt)
+    check_live_hierarchy(torch, "live", amg, bt)
     rows.insert(1, measure_band_sym(torch, amg.levels[0]))
     measure_large_cg(torch, amg, bt)
     del amg, bt

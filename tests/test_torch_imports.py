@@ -91,3 +91,32 @@ print(sorted(m for m in sys.modules
         if not path.exists():
             path = path.with_suffix("") / "__init__.py"
         assert path.is_file(), name
+
+
+#: axisymmetric magnetostatics and AC harmonic solves (slice 8)
+SLICE8 = ["models.axisymmetric", "models.harmonic", "models.harmonicaxi",
+          "models.benchprob", "ops.assembly", "ops.solver", "ops.band",
+          "convert"]
+
+
+def test_slice8_modules_stand_alone():
+    """The axisymmetric and AC modules import without jax or the JAX
+    package and carry the solvers the slice ports."""
+    code = f"""
+import importlib, sys
+sys.path.insert(0, {str(ROOT)!r})
+mods = {{n: importlib.import_module("xfemm_tpu_torch." + n)
+        for n in {SLICE8!r}}}
+assert callable(mods["models.axisymmetric"].solve)
+assert callable(mods["models.harmonicaxi"].solve)
+assert callable(mods["models.benchprob"].build_ac)
+assert callable(mods["ops.assembly"].axi_curl_matrices)
+assert callable(mods["ops.solver"].solve_complex)
+assert callable(mods["ops.band"].band_csym_fgmres_fused)
+assert callable(mods["convert"].cband_entry)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "xfemm_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]", out

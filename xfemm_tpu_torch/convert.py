@@ -88,3 +88,16 @@ def band_amg(amg, device="cpu") -> BandAMG:
             perm=None if bc.perm is None else tensor(bc.perm, device).long(),
             iperm=None if bc.iperm is None
             else tensor(bc.iperm, device).long()))
+
+
+def cband_entry(ent, device="cpu") -> dict:
+    """A JAX complex (AC) band-engine entry (``solver._CBAND_CACHE``
+    value) as the port's: the shifted-real hierarchy ``amg``, the
+    operator bands ``Aop`` (real part) and ``Ai`` (imaginary part), the
+    factor ``bt`` (or None), and the RCM order ``perm`` / ``iperm``."""
+    return {"amg": band_amg(ent["amg"], device),
+            "Aop": band_matrix(ent["Aop"], device),
+            "Ai": band_matrix(ent["Ai"], device),
+            "bt": _opt(bt_factor, ent.get("bt"), device),
+            "perm": np.asarray(ent["perm"]),
+            "iperm": np.asarray(ent["iperm"])}

@@ -2,11 +2,13 @@
 
 ``solve(problem, mesh)`` dispatches on the problem's file type and
 coordinate system, mirroring the runSolver dispatch of the reference
-(cfemm/fsolver/fsolver.cpp:1213-1340). The port solves planar
-magnetostatics; every other family raises ``NotImplementedError``
-naming the ROADMAP item that ports it, which removes its raise.
-Keyword arguments (``device``, ``hbm_bytes``, ``x0_A``, ...) go to the
-family's ``solve``.
+(cfemm/fsolver/fsolver.cpp:1213-1340). The port solves magnetics in
+every geometry and at every frequency: planar and axisymmetric
+magnetostatics (models/magnetostatics.py, models/axisymmetric.py) and
+AC harmonic problems (models/harmonic.py, models/harmonicaxi.py). Heat
+flow and electrostatics raise ``NotImplementedError`` naming the
+ROADMAP item that ports them, which removes the raise. Keyword
+arguments (``device``, ``hbm_bytes``, ...) go to the family's ``solve``.
 """
 
 from __future__ import annotations
@@ -23,10 +25,13 @@ def solve(problem, mesh, **kw):
     if problem.filetype == FileType.MAGNETICS:
         if problem.Frequency != 0:
             if problem.ProblemType == ProblemType.AXISYMMETRIC:
-                _later("axisymmetric AC magnetics", "A.3")
-            _later("planar AC magnetics", "A.3")
+                from . import harmonicaxi
+                return harmonicaxi.solve(problem, mesh, **kw)
+            from . import harmonic
+            return harmonic.solve(problem, mesh, **kw)
         if problem.ProblemType == ProblemType.AXISYMMETRIC:
-            _later("axisymmetric magnetostatics", "A.2")
+            from . import axisymmetric
+            return axisymmetric.solve(problem, mesh, **kw)
         from . import magnetostatics
         return magnetostatics.solve(problem, mesh, **kw)
     if problem.filetype == FileType.HEATFLOW:

@@ -83,3 +83,18 @@ def build(target_nodes: int = 1_000_000) -> Problem:
         BlockLabel(x=-0.575, y=0.0, BlockType=3, MaxArea=max_area),  # coil-
     ]
     return p
+
+
+def build_ac(target_nodes: int = 125_000, freq: float = 50.0) -> Problem:
+    """AC eddy-current benchmark: the same geometry with LINEAR
+    conductive steel (mu_r 1000, 2 MS/m) under 50 Hz coil drive --
+    the complex-symmetric K + jwM solve path (harmonic2d.cpp:38). The
+    port's chip_smoke.py drives build_ac(125_000) on the card."""
+    p = build(target_nodes)
+    p.Frequency = freq
+    steel = p.blockproplist[1]
+    steel.Bdata.clear()
+    steel.Hdata.clear()
+    steel.mu_x = steel.mu_y = 1000.0
+    steel.Cduct = 2.0
+    return p

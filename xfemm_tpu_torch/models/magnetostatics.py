@@ -22,7 +22,9 @@ chain. A ``[PrevSoln]`` input (``load_previous``) makes the B-H
 elements linear with the incremental or frozen permeability tensor about
 the previous solution's field (``incremental_mu``), so the solve is one
 linear pass. The JAX package's multi-device path comes in a later slice
-of the port.
+of the port. The axisymmetric model (models/axisymmetric.py) and the
+AC models (models/harmonic.py, models/harmonicaxi.py) reuse ``pack``,
+the element blocks and, for axisymmetric problems, ``_device_chain``.
 """
 
 from __future__ import annotations
@@ -675,11 +677,15 @@ SCATTER_FLOOR = 1e-4
 
 
 def _device_chain(dn, has_lam: bool, sess, V, relax: float, res: float,
-                  lastres: float, base_it: float, precision: float, dev):
+                  lastres: float, base_it: float, precision: float, dev,
+                  axi: bool = False, target: float | None = None):
     """The Newton middle on the device: a chain of budget-bounded
     ``newton.run`` dispatches (or single-step ``run_scatter`` calls at
     multi-GB bands) from the host's Newton state, with the JAX
-    package's stopping rules. Leaves the session's hierarchy as the
+    package's stopping rules. ``axi`` selects the axisymmetric energy
+    form of |B| (models/axisymmetric.py shares this chain); ``target``
+    is the displacement the chain stops at (90 x Precision when
+    omitted, the planar model's). Leaves the session's hierarchy as the
     loop left it (``newton.rebuild_band_amg``, also in the solver's band
     cache). Returns ``(V, relax, res, lastres, steps, cg_iterations)``
     (floats from the f32 device state)."""
@@ -695,7 +701,8 @@ def _device_chain(dn, has_lam: bool, sess, V, relax: float, res: float,
     relax_d, res_d, lastres_d = relax, res, lastres
     steps = 0
     cgit = 0.0
-    target = 90.0 * precision
+    if target is None:
+        target = 90.0 * precision
     tol_floor = max(precision, 3e-7)
     best_res = np.inf
     since = 0
@@ -705,13 +712,13 @@ def _device_chain(dn, has_lam: bool, sess, V, relax: float, res: float,
         if use_scatter:
             Vd, dvec, oob_vals, stats = newton_dev.run_scatter(
                 dn, amg, Vd, state, tol_floor=tol_floor, bt=sess.bt,
-                has_lam=has_lam,
+                has_lam=has_lam, axi=axi,
                 inner_iter=min(inner, cg_budget) if cg_budget else inner)
         else:
             Vd, dvec, oob_vals, stats = newton_dev.run(
                 dn, amg, Vd, state, tol_floor=tol_floor, target_res=target,
                 bt=sess.bt, has_lam=has_lam, max_steps=max_steps,
-                inner_iter=inner, cg_budget=cg_budget)
+                inner_iter=inner, cg_budget=cg_budget, axi=axi)
         prev_res = res_d
         relax_d, res_d, lastres_d, ksteps, cg_sub = \
             stats.double().cpu().numpy()
@@ -792,7 +799,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     permeability about its field, and the solve is linear.
     """
     assert problem.ProblemType == ProblemType.PLANAR, \
-        "axisymmetric problems come with a later slice of the port"
+        "axisymmetric problems solve through models/axisymmetric.py"
     from ..utils import profiling
     if Aprev is None and problem.PrevSoln:
         Aprev = load_previous(problem, mesh)

@@ -19,7 +19,10 @@ runs of AGG consecutive DOFs in the band ordering, so the smoothed
 prolongator and the Galerkin coarse matrices are banded too, and the
 V-cycle (``band_vcycle``) is dense-band products, damped-Jacobi or
 block-tridiagonal smoothing, and a dense (or block-tridiagonal) bottom
-solve. Setup runs on the host with scipy (``setup_band_amg``).
+solve. Setup runs on the host with scipy (``setup_band_amg``). The AC
+solvers (``band_csym_*``) apply a complex-symmetric operator as four K1
+products on the bands of its real and imaginary parts, on float32
+(re, im) pairs.
 """
 
 from __future__ import annotations
@@ -1118,3 +1121,161 @@ def band_fgmres(amg: BandAMG, b: torch.Tensor, m: int = 16):
         x = torch.as_tensor(y, dtype=torch.float32, device=dev) @ Z
     rel = float(np.linalg.norm(e1 - Hh @ y) / max(beta_h, 1e-30))
     return x, rel, m
+
+
+# ---------------------------------------------------------------------- #
+# complex-symmetric (AC) solvers on (re, im) pairs                        #
+# ---------------------------------------------------------------------- #
+
+def _complex_op(Aop: BandMatrix, Ai: BandMatrix, n: int):
+    """(Ar + i Ai)(xr + i xi) as four K1 products on the real bands."""
+    def opc(xr, xi):
+        ar_xr = band_matvec(Aop, xr)[:n]
+        ar_xi = band_matvec(Aop, xi)[:n]
+        ai_xr = band_matvec(Ai, xr)[:n]
+        ai_xi = band_matvec(Ai, xi)[:n]
+        return ar_xr - ai_xi, ar_xi + ai_xr
+    return opc
+
+
+def band_csym_pcg(amg: BandAMG, Aop: BandMatrix, Ai: BandMatrix, br, bi,
+                  tol, max_iter: int, stall_window: int = 300):
+    """Complex-symmetric PCG for (Ar + i Ai) x = b on the dense-band
+    engine. ``Aop``/``Ai`` are the bands of the true real/imaginary
+    parts; ``amg`` is a hierarchy built from the SHIFTED real matrix
+    Ar + diag(|Im diag|) (eddy mass lumped onto the diagonal), its
+    V-cycle applied to re and im separately, which keeps the bilinear
+    z.r structure of cspars.cpp:822. All traffic is float32 (re, im)
+    pairs. Stops on the Jacobi-weighted bilinear norm of r relative to
+    b's (the host refinement driver's metric); a masked host loop
+    (``solver._while_csym``). No solve path calls it, in this package or
+    in the JAX one: it is the complex-symmetric CG reference of the
+    tests. Returns ``(xr, xi, metric, iterations)``."""
+    from .solver import _while_csym
+
+    n = br.shape[0]
+    invd = amg.levels[0].invd
+
+    def prec(rr, ri):
+        return band_vcycle(amg, rr), band_vcycle(amg, ri)
+
+    def stopnorm(rr, ri):
+        return torch.hypot(torch.sum(invd * (rr * rr - ri * ri)),
+                           torch.sum(invd * (2.0 * rr * ri)))
+
+    return _while_csym(_complex_op(Aop, Ai, n), prec, stopnorm(br, bi), br,
+                       bi, tol, max_iter, stall_window, "band-csym",
+                       stopnorm=stopnorm)
+
+
+def band_csym_fgmres(amg: BandAMG, Aop: BandMatrix, Ai: BandMatrix,
+                     br, bi, m: int = 24, bt=None):
+    """One complex GMRES(m) cycle for (Ar + i Ai) x = b, right-
+    preconditioned by the shifted-real band-AMG V-cycle, on float32
+    (re, im) pairs. GMRES minimizes the residual monotonically, which
+    the complex-symmetric CG recurrence does not guarantee. ``bt``
+    (optional): a block-tridiagonal factor of the SAME shifted real
+    matrix, a much stronger preconditioner, applied to re and im
+    separately (one ``bt_fwd`` and one ``bt_qbwd`` launch each).
+
+    The Arnoldi basis (Hermitian two-pass classical Gram-Schmidt) runs
+    in true fp32 products, TF32 off, as ``band_fgmres``. The (m+1) x m
+    Hessenberg least-squares problem is copied to the host (one blocking
+    read per cycle) and solved in complex128 by numpy's SVD-based gelsd
+    with the JAX package's cutoff (f32 eps times m+1), so a rank-
+    deficient H after a breakdown is tolerated; the JAX package keeps it
+    on the device only because its TPU could not transfer complex
+    buffers. Returns ``(xr, xi, relative least-squares residual, m)``."""
+    from .blocktri import bt_apply
+
+    n = br.shape[0]
+    dev = br.device
+    opc = _complex_op(Aop, Ai, n)
+    beta = torch.sqrt(torch.sum(br * br + bi * bi))
+    bsafe = torch.clamp_min(beta, 1e-30)
+    Vr = torch.zeros((m + 1, n), dtype=torch.float32, device=dev)
+    Vi = torch.zeros((m + 1, n), dtype=torch.float32, device=dev)
+    Vr[0] = br / bsafe
+    Vi[0] = bi / bsafe
+    Zr = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    Zi = torch.zeros((m, n), dtype=torch.float32, device=dev)
+    Hr = torch.zeros((m + 1, m), dtype=torch.float32, device=dev)
+    Hi = torch.zeros((m + 1, m), dtype=torch.float32, device=dev)
+    with kernels.fp32_matmul():
+        for j in range(m):
+            if bt is None:
+                zr = band_vcycle(amg, Vr[j])
+                zi = band_vcycle(amg, Vi[j])
+            else:
+                zr = bt_apply(bt, Vr[j])
+                zi = bt_apply(bt, Vi[j])
+            wr, wi = opc(zr, zi)
+            # Hermitian <v, w> = sum(conj(v) w) over the j+1 basis
+            # vectors built so far (the JAX package masks the zero rows)
+            Pr, Pi = Vr[:j + 1], Vi[:j + 1]
+            h1r = Pr @ wr + Pi @ wi
+            h1i = Pr @ wi - Pi @ wr
+            wr = wr - (h1r @ Pr - h1i @ Pi)
+            wi = wi - (h1r @ Pi + h1i @ Pr)
+            h2r = Pr @ wr + Pi @ wi
+            h2i = Pr @ wi - Pi @ wr
+            wr = wr - (h2r @ Pr - h2i @ Pi)
+            wi = wi - (h2r @ Pi + h2i @ Pr)
+            wn = torch.sqrt(torch.sum(wr * wr + wi * wi))
+            wsafe = torch.clamp_min(wn, 1e-30)
+            Vr[j + 1] = wr / wsafe
+            Vi[j + 1] = wi / wsafe
+            Zr[j] = zr
+            Zi[j] = zi
+            Hr[:j + 1, j] = h1r + h2r
+            Hi[:j + 1, j] = h1i + h2i
+            Hr[j + 1, j] = wn
+    Hh = torch.stack([Hr, Hi]).double().cpu().numpy()
+    H = Hh[0] + 1j * Hh[1]
+    beta_h = float(beta)
+    e1 = np.zeros(m + 1, np.complex128)
+    e1[0] = beta_h
+    y, _res, _rank, _sv = np.linalg.lstsq(
+        H, e1, rcond=float(np.finfo(np.float32).eps) * (m + 1))
+    yr = torch.as_tensor(y.real, dtype=torch.float32, device=dev)
+    yi = torch.as_tensor(y.imag, dtype=torch.float32, device=dev)
+    with kernels.fp32_matmul():
+        xr = yr @ Zr - yi @ Zi
+        xi = yr @ Zi + yi @ Zr
+    rel = float(np.linalg.norm(e1 - H @ y) / max(beta_h, 1e-30))
+    return xr, xi, rel, m
+
+
+def band_csym_fgmres_fused(amg: BandAMG, Aop: BandMatrix, Ai: BandMatrix,
+                           br, bi, tol, m: int = 24, cycles: int = 8,
+                           bt=None):
+    """Restarted GMRES(m) for (Ar + i Ai) x = b: up to ``cycles`` cycles
+    (``band_csym_fgmres``), each restarted from the TRUE f32 residual
+    recomputed on the device, ending once the relative l2 residual is at
+    most ``tol``. The JAX package runs the cycles in one device
+    ``while_loop``; here the host loops, with one blocking read of the
+    residual per cycle. Each cycle applies the complex operator m + 1
+    times (4(m + 1) K1 launches): the residual a cycle ends with is the
+    next cycle's start, where the JAX loop recomputes it from the same
+    x (bitwise the same inputs). The driver still measures the f64
+    contract metric on the host afterwards. Returns ``(xr, xi, relative
+    l2 residual, iterations)``."""
+    n = br.shape[0]
+    opc = _complex_op(Aop, Ai, n)
+    b2 = max(float(torch.sum(br * br + bi * bi)), 1e-30)
+    xr = torch.zeros_like(br)
+    xi = torch.zeros_like(bi)
+    rr, ri = br, bi
+    rn = float("inf")
+    its = 0
+    for _ in range(cycles):
+        if not rn > tol:
+            break
+        dr, di, _rel, it = band_csym_fgmres(amg, Aop, Ai, rr, ri, m=m, bt=bt)
+        xr = xr + dr
+        xi = xi + di
+        ar, ai = opc(xr, xi)
+        rr, ri = br - ar, bi - ai
+        rn = float(torch.sqrt(torch.sum(rr * rr + ri * ri) / b2))
+        its += it
+    return xr, xi, rn, its

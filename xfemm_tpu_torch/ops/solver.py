@@ -24,6 +24,11 @@ Engines, chosen per call as in the JAX package:
   band V-cycle stops contracting (the session latches the band engine
   off, ``Session.band_disabled``);
 - element-block Jacobi CG (``_pcg_impl``) without DOF coordinates.
+
+AC systems (complex symmetric) go to ``solve_complex``: the same host
+refinement in complex128 around float32 (re, im) device passes, on the
+AC band engine (GMRES on the real and imaginary bands) or Jacobi CG on
+pairs.
 """
 
 from __future__ import annotations
@@ -153,44 +158,20 @@ CHECK_EVERY = 16
 #: masked iterations launched past each engine's stop, summed over
 #: passes: the host enqueued them before it saw the device finish. They
 #: do not change the result; on the CPU there are none
-MASKED = {"ell-amg": 0, "jacobi": 0}
+MASKED = {"ell-amg": 0, "jacobi": 0, "csym-pairs": 0, "band-csym": 0}
 
 
-def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
-               stall_window: int, engine: str):
-    """The JAX package's PCG ``while_loop`` (``_pcg_impl`` and
-    ``_pcg_amg_impl``) as a host loop over device tensors: stop when
-    ``sqrt(|z.r| / res0) <= tol``, at ``max_iter``, or when |z.r| has not
-    improved by 1% in ``stall_window`` iterations (the dtype floor).
-
-    The stopping state stays on the device. On the card an iteration
-    past the stop is masked (its step scale is zero, so x, r, p and the
-    counters do not move), which keeps the result identical to the
-    early exit; the host reads the state once per CHECK_EVERY
-    iterations and ends the pass early once the device has reported a
-    finished flag. On the CPU the loop checks every iteration and
-    launches no masked one. Returns ``(x, relative |z.r|, iterations)``
-    with the last two as host numbers."""
-    dev = b.device
-    res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
-    tol = torch.as_tensor(tol, dtype=b.dtype, device=dev)
-    r = b - op(x0)
-    z = prec(r)
-    p = z
-    res = torch.dot(z, r)
-    x = x0.clone()
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    best = res.abs()
-    since = torch.zeros((), dtype=torch.int32, device=dev)
-    cuda = dev.type == "cuda"
+def _masked_loop(running, step, cuda: bool) -> int:
+    """Drive a device-side loop from the host: ``running()`` is the
+    device's "still active" flag, ``step(active)`` one iteration that
+    leaves the state unchanged where ``active`` is False. On the card
+    the host enqueues iterations ahead, reads the state once per
+    CHECK_EVERY iterations and polls the CUDA event behind each
+    iteration's flag, ending as soon as one reports finished; on the
+    CPU it checks every iteration. Returns the iterations launched."""
     if cuda:
         flags = torch.empty(CHECK_EVERY, dtype=torch.bool, pin_memory=True)
     launched = 0
-
-    def running():
-        return ((torch.sqrt(res.abs() / res0) > tol) & (it < max_iter)
-                & (since < stall_window))
-
     done = False
     while not done:
         pending = []
@@ -205,20 +186,7 @@ def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
                 done = True
                 break
             launched += 1
-            u = op(p)
-            delta = torch.where(active, res / torch.dot(p, u),
-                                torch.zeros_like(res))
-            x = x + delta * p
-            r = r - delta * u
-            z = prec(r)
-            res_new = torch.dot(z, r)
-            p = torch.where(active, z + (res_new / res) * p, p)
-            improved = active & (res_new.abs() < 0.99 * best)
-            best = torch.where(improved, res_new.abs(), best)
-            since = torch.where(active & ~improved, since + 1,
-                                torch.where(improved, 0, since))
-            res = torch.where(active, res_new, res)
-            it = it + active.to(torch.int32)
+            step(active)
             while cuda and pending and pending[0][1].query():
                 k, _ = pending.pop(0)
                 if not bool(flags[k]):
@@ -228,9 +196,129 @@ def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
                 break
         if cuda and not done:
             done = not bool(running())
-    n_it = int(it)
+    return launched
+
+
+def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
+               stall_window: int, engine: str):
+    """The JAX package's PCG ``while_loop`` (``_pcg_impl`` and
+    ``_pcg_amg_impl``) as a host loop over device tensors: stop when
+    ``sqrt(|z.r| / res0) <= tol``, at ``max_iter``, or when |z.r| has not
+    improved by 1% in ``stall_window`` iterations (the dtype floor).
+
+    The stopping state stays on the device. On the card an iteration
+    past the stop is masked (its step scale is zero, so x, r, p and the
+    counters do not move), which keeps the result identical to the
+    early exit (``_masked_loop``). Returns ``(x, relative |z.r|,
+    iterations)`` with the last two as host numbers."""
+    dev = b.device
+    res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
+    tol = torch.as_tensor(tol, dtype=b.dtype, device=dev)
+    r = b - op(x0)
+    z = prec(r)
+    st = dict(x=x0.clone(), r=r, p=z, res=torch.dot(z, r),
+              it=torch.zeros((), dtype=torch.int32, device=dev),
+              since=torch.zeros((), dtype=torch.int32, device=dev))
+    st["best"] = st["res"].abs()
+
+    def running():
+        return ((torch.sqrt(st["res"].abs() / res0) > tol)
+                & (st["it"] < max_iter) & (st["since"] < stall_window))
+
+    def step(active):
+        res, p = st["res"], st["p"]
+        u = op(p)
+        delta = torch.where(active, res / torch.dot(p, u),
+                            torch.zeros_like(res))
+        st["x"] = st["x"] + delta * p
+        r = st["r"] = st["r"] - delta * u
+        z = prec(r)
+        res_new = torch.dot(z, r)
+        st["p"] = torch.where(active, z + (res_new / res) * p, p)
+        improved = active & (res_new.abs() < 0.99 * st["best"])
+        st["best"] = torch.where(improved, res_new.abs(), st["best"])
+        st["since"] = torch.where(active & ~improved, st["since"] + 1,
+                                  torch.where(improved, 0, st["since"]))
+        st["res"] = torch.where(active, res_new, res)
+        st["it"] = st["it"] + active.to(torch.int32)
+
+    launched = _masked_loop(running, step, dev.type == "cuda")
+    n_it = int(st["it"])
     MASKED[engine] += launched - n_it
-    return x, float(torch.sqrt(res.abs() / res0)), n_it
+    return st["x"], float(torch.sqrt(st["res"].abs() / res0)), n_it
+
+
+def _cdot(ar, ai, br, bi):
+    """Bilinear (unconjugated) complex dot product of (re, im) pairs."""
+    return (torch.sum(ar * br - ai * bi), torch.sum(ar * bi + ai * br))
+
+
+def _cdiv(ar, ai, br, bi):
+    den = br * br + bi * bi
+    return (ar * br + ai * bi) / den, (ai * br - ar * bi) / den
+
+
+def _while_csym(opc, prec, res0, br, bi, tol, max_iter: int,
+                stall_window: int, engine: str, stopnorm=None):
+    """Complex-symmetric PCG in the bilinear z.r form (the reference's
+    PBCGSolve, cspars.cpp:822) on float32 (re, im) pairs, from x0 = 0:
+    the JAX package's ``while_loop`` of ``_pcg_csym_pairs`` and
+    ``band.band_csym_pcg`` as a masked host loop (``_masked_loop``).
+    It stops when ``sqrt(stop / res0) <= tol`` with ``stop`` = |z.r|, or
+    ``stopnorm(r)`` when given, at ``max_iter``, or when |z.r| has not
+    improved by 1% in ``stall_window`` iterations. Returns ``(xr, xi,
+    sqrt(stop / res0), iterations)`` with the last two as host
+    numbers."""
+    dev = br.device
+    n = br.shape[0]
+    res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
+    tol = torch.as_tensor(tol, dtype=br.dtype, device=dev)
+    zr, zi = prec(br, bi)
+    res_r, res_i = _cdot(zr, zi, br, bi)
+    mag = torch.hypot(res_r, res_i)
+    st = dict(xr=torch.zeros(n, dtype=br.dtype, device=dev),
+              xi=torch.zeros(n, dtype=br.dtype, device=dev),
+              rr=br, ri=bi, pr=zr, pi=zi, res_r=res_r, res_i=res_i,
+              stop=mag if stopnorm is None else stopnorm(br, bi),
+              it=torch.zeros((), dtype=torch.int32, device=dev),
+              best=mag, since=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def running():
+        return ((torch.sqrt(st["stop"] / res0) > tol)
+                & (st["it"] < max_iter) & (st["since"] < stall_window))
+
+    def step(active):
+        pr, pi, res_r, res_i = st["pr"], st["pi"], st["res_r"], st["res_i"]
+        ur, ui = opc(pr, pi)
+        pap_r, pap_i = _cdot(pr, pi, ur, ui)
+        dr, di = _cdiv(res_r, res_i, pap_r, pap_i)
+        zero = torch.zeros_like(dr)
+        dr = torch.where(active, dr, zero)
+        di = torch.where(active, di, zero)
+        st["xr"] = st["xr"] + dr * pr - di * pi
+        st["xi"] = st["xi"] + dr * pi + di * pr
+        rr = st["rr"] = st["rr"] - (dr * ur - di * ui)
+        ri = st["ri"] = st["ri"] - (dr * ui + di * ur)
+        zr, zi = prec(rr, ri)
+        rn_r, rn_i = _cdot(zr, zi, rr, ri)
+        b_r, b_i = _cdiv(rn_r, rn_i, res_r, res_i)
+        st["pr"] = torch.where(active, zr + b_r * pr - b_i * pi, pr)
+        st["pi"] = torch.where(active, zi + b_r * pi + b_i * pr, pi)
+        mag = torch.hypot(rn_r, rn_i)
+        improved = active & (mag < 0.99 * st["best"])
+        st["best"] = torch.where(improved, mag, st["best"])
+        st["since"] = torch.where(active & ~improved, st["since"] + 1,
+                                  torch.where(improved, 0, st["since"]))
+        st["res_r"] = torch.where(active, rn_r, res_r)
+        st["res_i"] = torch.where(active, rn_i, res_i)
+        stop = mag if stopnorm is None else stopnorm(rr, ri)
+        st["stop"] = torch.where(active, stop, st["stop"])
+        st["it"] = st["it"] + active.to(torch.int32)
+
+    launched = _masked_loop(running, step, dev.type == "cuda")
+    n_it = int(st["it"])
+    MASKED[engine] += launched - n_it
+    return (st["xr"], st["xi"], float(torch.sqrt(st["stop"] / res0)), n_it)
 
 
 def _pcg_impl(blocks, b, diag, fixed_mask, tol, x0, max_iter: int,
@@ -1118,6 +1206,399 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
                 engine = _fallback_engine(session, At, blocks, fixed, coords,
                                           diag64, dev, latched=True)
                 continue
+            break
+    x, metric = best if best[1] < metric else (x, metric)
+    return x, metric, total_it
+
+
+# ---------------------------------------------------------------------- #
+# complex-symmetric (AC) systems                                          #
+# ---------------------------------------------------------------------- #
+
+#: complex (AC) band engine entries by pattern and device
+#: (``_band_cache_key``); an entry of None records "too large for the
+#: band engine, or latched off: take Jacobi pairs"
+_CBAND_CACHE: "collections.OrderedDict[bytes, dict | None]" = \
+    collections.OrderedDict()
+#: complex (AC) COO->CSR dedup patterns (``solve_complex``)
+_AC_PATTERN_CACHE: "collections.OrderedDict[bytes, tuple]" = \
+    collections.OrderedDict()
+
+
+def _pcg_csym_pairs(blocks_ri, br, bi, diag_r, diag_i, fixed_mask, tol,
+                    max_iter: int, stall_window: int = 300):
+    """Complex-symmetric Jacobi-PCG (bilinear z.r form, cspars.cpp:822)
+    on float32 (re, im) pairs: ``blocks_ri`` holds each element block
+    as device tensors (idx, sign, mat.real, mat.imag), so a complex
+    product is four real batched einsums and the Dirichlet rows act as
+    identity rows. A masked host loop (``_while_csym``); its masked
+    iterations count in ``MASKED["csym-pairs"]``. Returns ``(xr, xi,
+    sqrt(|z.r| / res0), iterations)``."""
+    n = br.shape[0]
+    zero = torch.zeros(n, dtype=br.dtype, device=br.device)
+
+    def opc(xr, xi):
+        xr_f = torch.where(fixed_mask, zero, xr)
+        xi_f = torch.where(fixed_mask, zero, xi)
+        yr = torch.zeros_like(zero)
+        yi = torch.zeros_like(zero)
+        for idx, sign, mr, mi in blocks_ri:
+            ger = sign * xr_f[idx]
+            gei = sign * xi_f[idx]
+            er = (torch.einsum("ekl,el->ek", mr, ger)
+                  - torch.einsum("ekl,el->ek", mi, gei))
+            ei = (torch.einsum("ekl,el->ek", mr, gei)
+                  + torch.einsum("ekl,el->ek", mi, ger))
+            flat = idx.reshape(-1)
+            yr = yr.index_add(0, flat, (sign * er).reshape(-1))
+            yi = yi.index_add(0, flat, (sign * ei).reshape(-1))
+        return (torch.where(fixed_mask, xr, yr),
+                torch.where(fixed_mask, xi, yi))
+
+    dmag2 = diag_r * diag_r + diag_i * diag_i
+    invd_r = diag_r / dmag2
+    invd_i = -diag_i / dmag2
+
+    def prec(rr, ri):
+        return invd_r * rr - invd_i * ri, invd_r * ri + invd_i * rr
+
+    # res0 = |sum(invd * b * b)| (bilinear)
+    bb_r = br * br - bi * bi
+    bb_i = 2.0 * br * bi
+    res0 = torch.hypot(torch.sum(invd_r * bb_r - invd_i * bb_i),
+                       torch.sum(invd_i * bb_r + invd_r * bb_i))
+    return _while_csym(opc, prec, res0, br, bi, tol, max_iter, stall_window,
+                       "csym-pairs")
+
+
+def _ac_csr(blocks, n: int, fixed):
+    """Dirichlet-eliminated complex CSR of the blocks. The COO->CSR dedup
+    pattern is cached across solves (``_AC_PATTERN_CACHE``); a value-only
+    rebuild is two bincounts into the cached slots with the Dirichlet
+    row/column elimination folded in."""
+    pkey = _pattern_cache_key(blocks, n, fixed)
+    pat = _AC_PATTERN_CACHE.get(pkey)
+    if pat is None:
+        rows_l, cols_l, souter_l = [], [], []
+        for blk in blocks:
+            idx = np.asarray(blk.idx)
+            sign = np.asarray(blk.sign, np.float64)
+            E, K = idx.shape
+            rows_l.append(np.broadcast_to(idx[:, :, None], (E, K, K)).ravel())
+            cols_l.append(np.broadcast_to(idx[:, None, :], (E, K, K)).ravel())
+            souter_l.append(sign[:, :, None] * sign[:, None, :])
+        rows = np.concatenate(rows_l)
+        cols = np.concatenate(cols_l)
+        keepf = (~fixed).astype(np.float64)
+        kmask = keepf[rows] * keepf[cols]
+        rows_d = np.concatenate([rows, np.arange(n)])
+        cols_d = np.concatenate([cols, np.arange(n)])
+        order = np.lexsort((cols_d, rows_d))
+        srows = rows_d[order]
+        scols = cols_d[order]
+        newgrp = np.empty(len(order), bool)
+        newgrp[0] = True
+        newgrp[1:] = (srows[1:] != srows[:-1]) | (scols[1:] != scols[:-1])
+        grp = np.cumsum(newgrp) - 1
+        nnz = int(grp[-1]) + 1
+        slot = np.empty(len(order), np.int64)
+        slot[order] = grp
+        indices = np.zeros(nnz, np.int32)
+        indices[grp] = scols.astype(np.int32)
+        uniq_rows = np.zeros(nnz, np.int64)
+        uniq_rows[grp] = srows
+        counts = np.bincount(uniq_rows, minlength=n)
+        indptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        pat = (slot[:len(rows)], indptr, indices, nnz, slot[len(rows):],
+               tuple(souter_l), kmask)
+        _AC_PATTERN_CACHE[pkey] = pat
+        while len(_AC_PATTERN_CACHE) > _PATTERN_CACHE_MAX:
+            _AC_PATTERN_CACHE.popitem(last=False)
+    slot, indptr, indices, nnz, diag_slots, souter_t, kmask = pat
+    data = np.concatenate(
+        [(so * np.asarray(blk.mat, np.complex128)).ravel()
+         for so, blk in zip(souter_t, blocks)]) * kmask
+    vals = (np.bincount(slot, weights=data.real, minlength=nnz)
+            + 1j * np.bincount(slot, weights=data.imag, minlength=nnz))
+    # fixed rows become identity; empty DOFs get a unit diagonal (the
+    # singularity guard, spars.cpp:245)
+    vals[diag_slots[fixed]] = 1.0
+    zd = vals[diag_slots] == 0.0
+    if zd.any():
+        vals[diag_slots[zd]] = 1.0
+    return sp.csr_matrix((vals, indices, indptr), shape=(n, n))
+
+
+#: the complex band entry's gates, as fractions of the device memory:
+#: the shifted matrix's band estimate, the hierarchy's budget, and the
+#: two operator bands plus the factor and its fill transient
+AC_BAND_GATE = 0.31
+AC_HIER_BUDGET = 0.8
+AC_FACTOR_GATE = 0.72
+
+
+def _ac_band_entry(At, n: int, dev, hbm: float):
+    """Build the complex band engine's state for ``At``: the RCM order,
+    the permuted-entry map, the band-AMG hierarchy of the SHIFTED real
+    matrix Ar + diag(|Im diag|) on Ap's exact pattern, and, where it
+    fits, that matrix's block-tridiagonal factor. None when the shifted
+    band's estimate fails the AC_BAND_GATE."""
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    from ..utils import profiling
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    perm = np.asarray(reverse_cuthill_mckee(At, symmetric_mode=True))
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(n)
+    Ap = At[perm][:, perm].tocsr()
+    Ap.sum_duplicates()
+    # entry map + diagonal slots: later adoptions refresh by
+    # At.data[dmap] instead of a two-sided permute
+    dmap = _csr_perm_map(At, Ap, perm, iperm)
+    rowsAp = np.repeat(np.arange(n), np.diff(Ap.indptr))
+    dpos = np.nonzero(rowsAp == Ap.indices)[0]
+    Ar = sp.csr_matrix((np.ascontiguousarray(Ap.data.real), Ap.indices,
+                        Ap.indptr), shape=(n, n))
+    # the shifted matrix on Ap's EXACT pattern (csr + diags would prune
+    # the eliminated Dirichlet zeros and desynchronize the layout from
+    # the entry map the value-only refresh indexes with): lumping the
+    # eddy mass onto the diagonal keeps it SPD, a reliable V-cycle for
+    # K + iwM where the plain real part is not
+    sh0 = np.ascontiguousarray(Ap.data.real)
+    sh0[dpos] = sh0[dpos] + np.abs(Ap.data[dpos].imag)
+    Ash = sp.csr_matrix((sh0, Ap.indices, Ap.indptr), shape=(n, n))
+    est = _band_bytes_estimate(Ash, band_mod.ROW_TILE)
+    if est > AC_BAND_GATE * hbm:
+        return None, Ap.data
+    with profiling.phase("band amg setup (ac)"):
+        amg, lay = band_mod.setup_band_amg(
+            Ash, budget_bytes=AC_HIER_BUDGET * hbm, device=dev)
+    ent = {"perm": perm, "iperm": iperm, "amg": amg, "lay": lay,
+           "oplay": band_mod.pack_band_layout(Ar, band_mod.ROW_TILE,
+                                              band_mod.ROW_TILE),
+           "dmap": dmap, "diag_pos": dpos, "bt": None}
+    # the block-tridiagonal factor of the SHIFTED real matrix: the
+    # strongest preconditioner for K + iwM the engine has
+    bsize = bt_mod.pick_block(bt_mod.bandwidth(Ash))
+    if bsize is not None:
+        fb = bt_mod.factor_bytes(n, bsize)
+        if 3 * est + 2 * fb <= AC_FACTOR_GATE * hbm:
+            with profiling.phase("bt factor (ac)"):
+                blay = bt_mod.pack_layout(Ash, bsize)
+                ent["bt_maps"] = bt_mod.device_maps(blay, dev)
+                ent["bt_shape"] = (bsize, blay.NB)
+                ent["bt"] = bt_mod.build_factor(ent["bt_maps"], Ash.data,
+                                                b=bsize, NB=blay.NB)
+    return ent, Ap.data
+
+
+def _ac_band_refresh(ent, At) -> np.ndarray:
+    """Value-only refresh of an adopted entry: the shifted hierarchy's
+    fine level from the cached entry map, and the factor rebuilt (it is
+    exact for the current values). Returns the permuted values."""
+    from ..utils import profiling
+    from . import band as band_mod
+    from . import blocktri as bt_mod
+
+    with profiling.phase("ac band refresh"):
+        Ap_data = At.data[ent["dmap"]]
+        sh_vals = np.ascontiguousarray(Ap_data.real)
+        dpos = ent["diag_pos"]
+        sh_vals[dpos] += np.abs(Ap_data[dpos].imag)
+        ent["amg"] = band_mod.update_fine_values(ent["amg"], ent["lay"],
+                                                 sh_vals)
+    if ent.get("bt") is not None:
+        bsize, NB = ent["bt_shape"]
+        with profiling.phase("bt refactor (ac)"):
+            ent["bt"] = bt_mod.build_factor(ent["bt_maps"], sh_vals,
+                                            b=bsize, NB=NB)
+    return Ap_data
+
+
+def ac_gmres_m(with_factor: bool) -> int:
+    """GMRES restart length of the AC band engine: 6 with the factor
+    (each iteration contracts strongly, so short cycles check the true
+    residual sooner), 24 with the V-cycle alone; the environment's
+    ``XFEMM_TPU_AC_GMRES_M`` overrides both."""
+    import os
+    return int(os.environ.get("XFEMM_TPU_AC_GMRES_M",
+                              "6" if with_factor else "24"))
+
+
+def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
+                  x0=None, max_iter: int = 200000,
+                  inner_tol: float | None = None, inner_iter: int = 20000,
+                  device=None, hbm: float | None = None):
+    """Complex-symmetric solve with the same host-f64 (complex128)
+    refinement driver as ``solve``: exact residuals and the reference's
+    bilinear stopping metric ``sqrt(|r.D^-1.r| / |b.D^-1.b|)``
+    (cspars.cpp:300) on the host, device passes in float32 (re, im)
+    pairs, Dirichlet values via identity rows.
+
+    Engines, as the JAX package's f32-device branch: above
+    4*ROW_TILE_MIN unknowns, the dense-band engine (``band.
+    band_csym_fgmres_fused``: GMRES(m) on the Ar and Ai bands,
+    preconditioned by the block-tridiagonal factor of the shifted real
+    matrix Ar + diag(|Im diag|) or, without one, by its band-AMG
+    V-cycle), built when the shifted band's estimate is at most
+    AC_BAND_GATE of the device memory; otherwise, and after a latch-off,
+    Jacobi CG on (re, im) pairs (``_pcg_csym_pairs``). A pass that does
+    not cut the l2 residual by 10% drops the factor (retrying with the
+    V-cycle), then latches the band engine off for the pattern. The
+    port has no f64 device path, so the JAX package's complex128 loop
+    (``_csym_loop``, taken where the device holds f64) has no
+    counterpart. ``device`` / ``hbm`` as for ``solve``; ``hbm`` is read
+    only when the band engine is considered. Returns (x, metric,
+    iterations)."""
+    from ..utils import profiling
+    from . import band as band_mod
+
+    dev = resolve_device(device)
+    blocks = tuple(blocks)
+    n = int(np.asarray(b).shape[0])
+    fixed = np.asarray(fixed_mask, bool)
+    fvals = np.asarray(fixed_vals, np.complex128)
+    b128 = np.asarray(b, np.complex128)
+    if inner_tol is None:
+        inner_tol = max(tol, 1e-5)
+
+    with profiling.phase("ac csr assembly"):
+        At = _ac_csr(blocks, n, fixed)
+    diag = np.asarray(At.diagonal())
+
+    g = np.where(fixed, fvals, 0.0)
+    # b - A g needs the UNELIMINATED couplings to fixed values
+    Ag = np.zeros(n, np.complex128)
+    if bool(fixed.any()) and bool(np.any(fvals[fixed] != 0.0)):
+        for blk_ in blocks:
+            idx = np.asarray(blk_.idx)
+            sgn = np.asarray(blk_.sign, np.float64)
+            mat = np.asarray(blk_.mat, np.complex128)
+            ye = np.einsum("ekl,el->ek", mat, sgn * g[idx])
+            np.add.at(Ag, idx.reshape(-1), (sgn * ye).reshape(-1))
+    rhs = np.where(fixed, fvals, b128 - Ag)
+    invd = 1.0 / diag
+    res0 = abs(np.sum(invd * rhs * rhs))
+    if res0 == 0.0:
+        res0 = 1.0
+    x = g.copy() if x0 is None else np.where(fixed, fvals,
+                                             np.asarray(x0, np.complex128))
+
+    def f32(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32,
+                               device=dev)
+
+    band_ent = None
+    ckey = None
+    if n > 4 * ROW_TILE_MIN:
+        ckey = _band_cache_key(At, fixed, dev)
+        cached = _CBAND_CACHE.get(ckey, "miss")
+        if cached == "miss":
+            band_ent, Ap_data = _ac_band_entry(At, n, dev,
+                                               device_hbm_bytes(dev, hbm))
+            _CBAND_CACHE[ckey] = band_ent
+            while len(_CBAND_CACHE) > _BAND_CACHE_MAX:
+                _CBAND_CACHE.popitem(last=False)
+        elif cached is not None:
+            band_ent = cached
+            Ap_data = _ac_band_refresh(band_ent, At)
+        if band_ent is not None:
+            band_ent["Aop"] = band_mod.fill_band_device(
+                band_ent["oplay"], Ap_data.real, band_mod.ROW_TILE,
+                device=dev)
+            band_ent["Ai"] = band_mod.fill_band_device(
+                band_ent["oplay"], Ap_data.imag, band_mod.ROW_TILE,
+                device=dev)
+
+    blocks_ri = diag_r = diag_i = fixed_d = None
+
+    def pairs_engine():
+        nonlocal blocks_ri, diag_r, diag_i, fixed_d
+        if blocks_ri is None:
+            blocks_ri = tuple(
+                (torch.as_tensor(np.asarray(blk.idx, np.int64), device=dev),
+                 f32(np.asarray(blk.sign, np.float64)),
+                 f32(np.asarray(blk.mat, np.complex128).real),
+                 f32(np.asarray(blk.mat, np.complex128).imag))
+                for blk in blocks)
+            diag_r, diag_i = f32(diag.real), f32(diag.imag)
+            fixed_d = torch.as_tensor(fixed, device=dev)
+
+    total_it = 0
+    metric = np.inf
+    best = (x, np.inf)
+    for _ in range(60):
+        r = rhs - At @ x
+        metric = float(np.sqrt(abs(np.sum(invd * r * r)) / res0))
+        if metric < best[1]:
+            best = (x.copy(), metric)
+        if metric <= tol or total_it >= max_iter:
+            break
+        scale = np.abs(r).max()
+        if scale == 0.0:
+            break
+        if band_ent is not None:
+            rs = (r / scale)[band_ent["perm"]]
+            # fused restarted GMRES(m): up to 8 cycles per call with
+            # device f32 residual recomputation between cycles; this
+            # outer loop restarts from the exact f64 residual until the
+            # contract metric is met
+            tol_pass = min(0.5, max(0.3 * tol / min(metric, 1.0), 2e-6))
+            with profiling.phase("device gmres (ac)"):
+                dr, di, rr, it = band_mod.band_csym_fgmres_fused(
+                    band_ent["amg"], band_ent["Aop"], band_ent["Ai"],
+                    f32(rs.real), f32(rs.imag), tol_pass,
+                    m=ac_gmres_m(band_ent.get("bt") is not None),
+                    bt=band_ent.get("bt"))
+                d_h = (dr.double().cpu().numpy()
+                       + 1j * di.double().cpu().numpy())[band_ent["iperm"]]
+            engine = "band gmres" + (" + bt" if band_ent.get("bt")
+                                     is not None else " + vcycle")
+        else:
+            pairs_engine()
+            rs = r / scale
+            with profiling.phase("device cg (ac pairs)"):
+                dr, di, rr, it = _pcg_csym_pairs(
+                    blocks_ri, f32(rs.real), f32(rs.imag), diag_r, diag_i,
+                    fixed_d, inner_tol, int(inner_iter))
+                d_h = (dr.double().cpu().numpy()
+                       + 1j * di.double().cpu().numpy())
+            engine = "jacobi pairs"
+        total_it += int(it)
+        x = x + scale * d_h
+        new_r = rhs - At @ x
+        new_metric = float(np.sqrt(abs(np.sum(invd * new_r * new_r)) / res0))
+        _trace(f"ac pass ({engine}): n={n} it={it} rr={rr:.3e} metric "
+               f"{metric:.3e} -> {new_metric:.3e}")
+        # progress/stall decisions use the TRUE l2 residual norm: the
+        # contract metric is the reference's BILINEAR z.r form, not a
+        # norm for complex systems -- it can rise through cancellation
+        # while the inner GMRES genuinely contracts ||r||_2 (and since
+        # |sum invd r r| <= sum invd |r|^2, driving l2 down drives it
+        # down too)
+        l2_old = float(np.linalg.norm(r))
+        l2_new = float(np.linalg.norm(new_r))
+        if l2_new >= l2_old * 0.9:
+            if band_ent is not None and band_ent.get("bt") is not None \
+                    and new_metric > max(100.0 * tol, 1e-4):
+                # the factor is not contracting: drop it, retry with the
+                # V-cycle before abandoning the band engine
+                _trace("ac: dropping the factor, retrying the V-cycle")
+                band_ent["bt"] = None
+                continue
+            if band_ent is not None and new_metric > max(100.0 * tol, 1e-4):
+                # the shifted-real V-cycle is not contracting on this
+                # operator: latch the band engine off for this pattern
+                # and continue with Jacobi pairs CG
+                _trace(f"ac band engine latched off at metric "
+                       f"{new_metric:.3e}")
+                _CBAND_CACHE[ckey] = None
+                band_ent = None
+                continue
+            if new_metric < best[1]:
+                best = (x.copy(), new_metric)
             break
     x, metric = best if best[1] < metric else (x, metric)
     return x, metric, total_it
