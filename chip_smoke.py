@@ -9,7 +9,12 @@ Phases (any failure exits non-zero, with no result line):
    (one nvcc per source, all started together);
 2. hold each kernel against its plain PyTorch version on the card at the
    main paths' shapes: the band matvec (K1) at (1949, 128, 2176) in f32
-   and bf16 and an R=512 band, the block-Thomas apply (the persistent
+   and bf16 and an R=512 band, with two columns on the R=512 band and
+   the 250k one, on a bf16 prolongator band (975, 128, 352) at cchunk
+   32 with one and two columns, at NT=1 and 2 and with a positive shift0
+   (each launch repeated and held bit for bit, each column of a
+   two-column launch held bit for bit to the one-column launch, the
+   launch plan printed), the block-Thomas apply (the persistent
    forward sweep bt_fwd (K2) and the fused Sinv product + backward sweep
    bt_qbwd (K3 + K4)) at b=1024, NB=244, at b=2048 (a ring of chunks),
    in bf16 at b=896 and b=256, and at NB=1 and 2 (each sweep also step
@@ -73,8 +78,11 @@ Phases (any failure exits non-zero, with no result line):
    pairs, launches of K1, K2 and K3+K4, and the solution against a
    host ``spsolve`` of the same complex system at 1e-6), K1 on the Ar
    and Ai bands and the shifted levels and the sweeps on the live
-   factor against their plain versions, the complex apply's four K1
-   calls against one ``torch.bmm`` per band over the (xr, xi) window;
+   factor against their plain versions (each band also timed against its
+   bytes bound), K1's launches per fused GMRES cycle (2(m+1)), the complex
+   apply's two two-column K1 launches in turns with four one-column
+   launches (bitwise equal) and one ``torch.bmm`` per band over the
+   (xr, xi) window;
    AxiSolenoid.fem refined to ~250k nodes cold and warm on the device
    loop (``newton.run`` with ``axi=True``; its cached band and factor
    held against the plain kernels) and on the host chain, within 1e-5;
@@ -94,7 +102,8 @@ Phases (any failure exits non-zero, with no result line):
    same storage throughout; the refresh timed per step); hold every
    kernel against its plain version on the live
    hierarchy and smoother (each level's K5 or K1 band, bf16 copy and
-   prolongator; the sweeps step by step, chained and repeated); time K5
+   prolongator, each timed against its bytes bound; the sweeps step by
+   step, chained and repeated); time K5
    on the live fine band and the live smoother's bt_fwd and bt_qbwd
    (with both sweeps' launch plans and clock cycles per phase of a
    step), profile a few CG iterations; then the V-cycle on a small
@@ -160,10 +169,14 @@ def smi_line() -> str:
     return out[0]
 
 
-def median_ms(fn, reps: int = 15, warmup: int = 2) -> float:
-    """Median device time of one call of ``fn`` (CUDA events around each
-    call; the inputs are larger than L2, so every call streams from
-    device memory)."""
+def median_ms(fn, reps: int = 15, warmup: int = 2, batch: int = 5) -> float:
+    """Median device time of one call of ``fn``: CUDA events around
+    ``batch`` back-to-back calls, divided by ``batch``, over ``reps``
+    batches. Back to back, the host enqueues a call while the card runs
+    the previous one, as in a solve's loop, so a wrapper's host time
+    (~20 us for K1) shows only where it exceeds the device time;
+    ``batch=1`` times a lone call, host time included. The inputs are
+    larger than L2, so every call streams from device memory."""
     import torch
     for _ in range(warmup):
         fn()
@@ -172,10 +185,11 @@ def median_ms(fn, reps: int = 15, warmup: int = 2) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(batch):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / batch)
     return statistics.median(times)
 
 
@@ -189,21 +203,63 @@ def rel_err(y, ref) -> float:
     return float((y - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
 
 
+def describe_mv_plan(kernels, dense, C: int) -> str:
+    """K1's launch for ``dense`` with C columns on this card: grid,
+    residency, items, ring, lanes per row, shared memory."""
+    NT, R, W = dense.shape
+    p = kernels._mv_plan(NT, R, W, dense.dtype, C,
+                         kernels._n_sm(dense.device.index))
+    per_sm = kernels.mv_blocks_per_sm(dense.dtype, C, p.smem_bytes)
+    return (f"grid {p.blocks} blocks ({per_sm} resident per SM), "
+            f"{p.items} items of {p.stage_rows} row(s), ring of {p.stages} "
+            f"stages x {p.stage_rows * W * dense.element_size()} B, "
+            f"{p.lanes_per_row} lanes per row, {p.smem_bytes} B shared "
+            f"memory")
+
+
+def k1_bound(dense, ncols: int, C: int = 1) -> tuple[float, str]:
+    """K1's bound: the band read once, x read and y written once, 2C
+    flops per band element."""
+    NT, R, W = dense.shape
+    return bound_ms(dense.numel() * dense.element_size()
+                    + 4 * C * (ncols + NT * R), 2.0 * C * NT * R * W)
+
+
 def check_band_mv(kernels, torch, gen, NT, R, W, shift0, ncols, dtype,
-                  tol):
+                  tol, cchunk=None, C=1):
+    """K1 against its plain version on a random (NT, R, W) band with C
+    columns, at ``tol`` of max|y|; two launches must give the same bits,
+    and each column of a two-column launch the bits of the one-column
+    launch on it. Prints the error, the median time against the bound and
+    the launch plan."""
+    cchunk = cchunk or R
     dense = torch.randn((NT, R, W), generator=gen, device="cuda") \
         .to(dtype)
-    x = torch.randn(ncols, generator=gen, device="cuda")
-    y = kernels.band_mv(dense, x, shift0, R, ncols)
-    ref = kernels.band_mv_plain(dense, x, shift0, R, ncols)
+    x = torch.randn((ncols, C) if C > 1 else ncols, generator=gen,
+                    device="cuda")
+    args = (shift0, cchunk, ncols)
+    y = kernels.band_mv(dense, x, *args)
+    ref = kernels.band_mv_plain(dense, x, *args)
     torch.cuda.synchronize()
     err = rel_err(y, ref)
-    ms = median_ms(lambda: kernels.band_mv(dense, x, shift0, R, ncols))
-    print(f"K1 band_mv ({NT},{R},{W}) {str(dtype)[6:]} shift0={shift0}: "
-          f"max rel err {err:.3e} (tol {tol:g}), median {ms:.4f} ms",
+    same = torch.equal(y, kernels.band_mv(dense, x, *args))
+    cols = C == 1 or all(
+        torch.equal(y[:, c], kernels.band_mv(dense, x[:, c].contiguous(),
+                                             *args)) for c in range(C))
+    ms = median_ms(lambda: kernels.band_mv(dense, x, *args))
+    bound, _ = k1_bound(dense, ncols, C)
+    print(f"K1 band_mv ({NT},{R},{W}) {str(dtype)[6:]} C={C} "
+          f"shift0={shift0} cchunk={cchunk} ncols={ncols}: max rel err "
+          f"{err:.3e} (tol {tol:g}), two launches bitwise equal {same}"
+          + ("" if C == 1 else f", each column bitwise the one-column "
+             f"launch {cols}")
+          + f"; median {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({100 * bound / ms:.0f}%); {describe_mv_plan(kernels, dense, C)}",
           flush=True)
     if not err <= tol:
         fail(f"band_mv disagrees with its plain version: {err:.3e}")
+    if not (same and cols):
+        fail(f"band_mv is not bitwise repeatable on ({NT},{R},{W}) C={C}")
     del dense
 
 
@@ -430,6 +486,25 @@ def kernel_phase(torch, seed: int) -> None:
                   torch.bfloat16, TOL)
     check_band_mv(kernels, torch, gen, 488, 512, 2560, -2, 249_600 - 300,
                   torch.float32, TOL)
+    # two columns (the AC complex apply's (xr, xi)) on the ac125k bands'
+    # R and W, and on the 250k band
+    check_band_mv(kernels, torch, gen, 488, 512, 2560, -2, 249_600 - 300,
+                  torch.float32, TOL, C=2)
+    check_band_mv(kernels, torch, gen, 1949, 128, 2176, -8, 249_469,
+                  torch.float32, TOL, C=2)
+    # a bf16 prolongator band (cchunk 32; ncols not a multiple of R, the
+    # last windows past it)
+    check_band_mv(kernels, torch, gen, 975, 128, 352, 0, 975 * 32 - 5,
+                  torch.bfloat16, TOL, cchunk=32)
+    check_band_mv(kernels, torch, gen, 975, 128, 352, 0, 975 * 32 - 5,
+                  torch.bfloat16, TOL, cchunk=32, C=2)
+    # the shortest bands, a positive shift0, ncols not a multiple of R
+    check_band_mv(kernels, torch, gen, 1, 128, 2176, 0, 1000,
+                  torch.float32, TOL)
+    check_band_mv(kernels, torch, gen, 2, 128, 2176, -1, 300,
+                  torch.bfloat16, TOL, C=2)
+    check_band_mv(kernels, torch, gen, 3001, 256, 768, 1, 3001 * 256 - 131,
+                  torch.float32, TOL, C=2)
     bf16 = torch.bfloat16
     # the 250k factor's shape; b=2048 streams a block step in chunks
     check_bt_apply(kernels, blocktri, torch, gen, 244, 1024, TOL)
@@ -770,8 +845,11 @@ def measure_on_main_path(torch, band, bt):
     # zero-padded x (an as_strided view, no copy)
     win = band_windows(torch, band, x[:, None])
     lib_y = torch.bmm(d, win)[:, :, 0].reshape(-1)
+    lone = median_ms(lambda: kernels.band_mv(d, x, band.shift0, band.cchunk,
+                                             band.ncols), batch=1)
     print(f"main-path K1 library torch.bmm(band, x windows): rel diff to "
-          f"K1 {rel_err(lib_y, k):.3e}", flush=True)
+          f"K1 {rel_err(lib_y, k):.3e}; K1 lone call (host time included) "
+          f"{lone:.4f} ms; K1 {describe_mv_plan(kernels, d, 1)}", flush=True)
     rows.append(dict(
         name="band_mv", err=float((k - p).abs().max()), rel=rel_err(k, p),
         ms=median_ms(lambda: kernels.band_mv(d, x, band.shift0, band.cchunk,
@@ -1843,10 +1921,14 @@ def ac_host_reference(system):
 
 
 def ac_apply_cost(torch, ent) -> None:
-    """The complex operator apply of the AC engine on its Ar and Ai
-    bands: the four K1 calls it makes, K1 alone, and one ``torch.bmm``
-    per band over a two-column (xr, xi) window (the single-pass
-    alternative), checked against the four calls."""
+    """The complex operator apply of the AC engine on its live Ar and Ai
+    bands, timed in turns: the apply as it runs (``band._complex_op``:
+    two two-column K1 launches, each band streamed once), the same apply
+    as four one-column K1 launches (its earlier shape), one ``torch.bmm``
+    per band over the two-column (xr, xi) window (the library
+    yardstick), the apply again, beside the bound of one pass over both
+    bands. Fails unless the apply is bitwise the four one-column launches
+    and within TOL of the bmm pair."""
     from xfemm_tpu_torch.ops import band as band_mod
     from xfemm_tpu_torch.ops import kernels
     Aop, Ai = ent["Aop"], ent["Ai"]
@@ -1856,34 +1938,53 @@ def ac_apply_cost(torch, ent) -> None:
     xr = torch.randn(n, generator=gen, device="cuda")
     xi = torch.randn(n, generator=gen, device="cuda")
     opc = band_mod._complex_op(Aop, Ai, n)
-    yr, yi = opc(xr, xi)
+    args = (Aop.shift0, Aop.cchunk, Aop.ncols)
+
+    def four():
+        ar_xr = kernels.band_mv(Aop.dense, xr, *args)[:n]
+        ar_xi = kernels.band_mv(Aop.dense, xi, *args)[:n]
+        ai_xr = kernels.band_mv(Ai.dense, xr, *args)[:n]
+        ai_xi = kernels.band_mv(Ai.dense, xi, *args)[:n]
+        return ar_xr - ai_xi, ar_xi + ai_xr
+
     win = band_windows(torch, Aop, torch.stack([xr, xi], dim=1))
 
     def two_bmm():
         return torch.bmm(Aop.dense, win), torch.bmm(Ai.dense, win)
 
+    before = dict(kernels.LAUNCHES)
+    yr, yi = opc(xr, xi)
+    fr, fi = four()
+    bitwise = torch.equal(yr, fr) and torch.equal(yi, fi)
     pr, pi = two_bmm()
     pr = pr.reshape(-1, 2)[:n]
     pi = pi.reshape(-1, 2)[:n]
     err = max(rel_err(pr[:, 0] - pi[:, 1], yr), rel_err(pr[:, 1] + pi[:, 0],
                                                         yi))
-    before = dict(kernels.LAUNCHES)
-    t4 = median_ms(lambda: opc(xr, xi))
-    t1 = median_ms(lambda: kernels.band_mv(Aop.dense, xr, Aop.shift0,
-                                           Aop.cchunk, Aop.ncols))
+    t2a = median_ms(lambda: opc(xr, xi))
+    t4 = median_ms(four)
     tb = median_ms(two_bmm)
+    t2b = median_ms(lambda: opc(xr, xi))
+    t1 = median_ms(lambda: kernels.band_mv(Aop.dense, xr, *args))
     kernels.LAUNCHES.update(before)
     d = Aop.dense
+    nbytes = d.numel() * d.element_size()
+    one = nbytes / HBM_BYTES_PER_S * 1e3
+    bound = 2 * one
     print(f"ac125k complex apply on the Ar/Ai bands {tuple(d.shape)} "
-          f"(2 x {d.numel() * d.element_size() / 1e9:.3f} GB): four K1 "
-          f"calls {t4:.4f} ms (K1 alone {t1:.4f} ms); one torch.bmm per "
-          f"band over the (xr, xi) window {tb:.4f} ms (rel diff {err:.3e}, "
-          f"tol {TOL:g}); bound of one pass over both bands "
-          f"{2 * d.numel() * d.element_size() / HBM_BYTES_PER_S * 1e3:.4f} "
-          f"ms", flush=True)
+          f"(2 x {nbytes / 1e9:.3f} GB), in turns: two two-column K1 "
+          f"launches {t2a:.4f} / {t2b:.4f} ms ({100 * bound / t2a:.0f}% / "
+          f"{100 * bound / t2b:.0f}% of the one-pass bound {bound:.4f} ms); "
+          f"four one-column launches {t4:.4f} ms (one alone {t1:.4f} ms, "
+          f"bound {one:.4f} ms); one torch.bmm per band over the (xr, xi) "
+          f"window {tb:.4f} ms; apply bitwise the four launches {bitwise}; "
+          f"rel diff to the bmm pair {err:.3e} (tol {TOL:g}); plan "
+          f"{describe_mv_plan(kernels, d, 2)}", flush=True)
+    if not bitwise:
+        fail("the two-column complex apply differs from four one-column "
+             "K1 launches")
     if not err <= TOL:
-        fail("the four K1 calls of the complex apply disagree with "
-             "torch.bmm")
+        fail("the complex apply disagrees with torch.bmm")
 
 
 def ac_125k(torch) -> dict:
@@ -1959,6 +2060,17 @@ def ac_125k(torch) -> dict:
     for name in ("band_mv", "bt_fwd", "bt_qbwd"):
         if not launches[name]:
             fail(f"the ac125k solves never launched {name}")
+    # with the factor each fused cycle applies the operator m + 1 times,
+    # two K1 launches each, and nothing else launches K1
+    cycles = sum(its // m for r in recs for m, _f, its in r.gmres)
+    expect = sum(2 * (m + 1) * (its // m) for r in recs
+                 for m, _f, its in r.gmres)
+    print(f"ac125k K1 launches {launches['band_mv']} over {cycles} fused "
+          f"cycles (2(m+1) per cycle: {expect})", flush=True)
+    if (all(f for r in recs for _m, f, _i in r.gmres)
+            and launches["band_mv"] != expect):
+        fail(f"the ac125k solves launched K1 {launches['band_mv']} times, "
+             f"not 2(m+1) per fused cycle ({expect})")
     err, sec = ac_host_reference(recs[0].systems[0])
     dA = float(np.abs(sols[0].A - sols[1].A).max() / np.abs(sols[0].A).max())
     print(f"ac125k cold solve vs host spsolve of the same complex system: "
@@ -2336,7 +2448,8 @@ def check_live_hierarchy(torch, label: str, amg, bt, extra=()) -> None:
     live tensors: the bands in ``extra`` ((name, band) pairs, K1) and
     each level of ``amg``: its operator band (K5 where it is stored
     triu, else K1), its bf16 smoothing copy and its prolongator band
-    (K1), at TOL of max|y|; and the sweeps of the factor or smoother
+    (K1), at TOL of max|y|, each also timed (median) beside its bytes
+    bound; and the sweeps of the factor or smoother
     ``bt`` (bt_fwd, bt_qbwd), step by step at TOL and chained at TOL
     (BF16_CHAIN_TOL for a bf16 factor)."""
     from xfemm_tpu_torch.ops import kernels
@@ -2352,18 +2465,29 @@ def check_live_hierarchy(torch, label: str, amg, bt, extra=()) -> None:
         d = bm.dense
         x = torch.randn(bm.ncols, generator=gen, device="cuda")
         args = (bm.shift0, bm.cchunk, bm.ncols)
+        NT, R, W = d.shape
         if dvec is not None:
             kern = "K5"
-            y = kernels.band_sym(d, dvec, x, *args)
+
+            def fn():
+                return kernels.band_sym(d, dvec, x, *args)
             ref = kernels.band_sym_plain(d, dvec, x, *args)
+            bound, _ = bound_ms(d.numel() * d.element_size()
+                                + 3 * 4 * bm.ncols, 4.0 * NT * R * W)
         else:
             kern = "K1"
-            y = kernels.band_mv(d, x, *args)
+
+            def fn():
+                return kernels.band_mv(d, x, *args)
             ref = kernels.band_mv_plain(d, x, *args)
+            bound, _ = k1_bound(d, bm.ncols)
+        y = fn()
         err = rel_err(y, ref)
+        ms = median_ms(fn, reps=9)
         print(f"{label} {name} {kern} {tuple(d.shape)} {str(d.dtype)[6:]} "
-              f"cchunk={bm.cchunk}: max rel err {err:.3e} (tol {TOL:g})",
-              flush=True)
+              f"cchunk={bm.cchunk}: max rel err {err:.3e} (tol {TOL:g}); "
+              f"median {ms:.4f} ms, bytes bound {bound:.4f} ms "
+              f"({100 * bound / ms:.0f}%)", flush=True)
         if not err <= TOL:
             fail(f"{kern} disagrees with its plain version on the {label} "
                  f"band {name}")

@@ -20,9 +20,10 @@ prolongator and the Galerkin coarse matrices are banded too, and the
 V-cycle (``band_vcycle``) is dense-band products, damped-Jacobi or
 block-tridiagonal smoothing, and a dense (or block-tridiagonal) bottom
 solve. Setup runs on the host with scipy (``setup_band_amg``). The AC
-solvers (``band_csym_*``) apply a complex-symmetric operator as four K1
-products on the bands of its real and imaginary parts, on float32
-(re, im) pairs.
+solvers (``band_csym_*``) apply a complex-symmetric operator as two
+two-column K1 products, one on the band of its real part and one on
+that of its imaginary part, each times (xr, xi): float32 (re, im)
+pairs, each band streamed once per apply.
 """
 
 from __future__ import annotations
@@ -78,8 +79,10 @@ class BandMatrix:
 
 
 def band_matvec(bm: BandMatrix, x: torch.Tensor) -> torch.Tensor:
-    """y = A x; x is the logical (ncols,) vector. The product is
-    accumulated in f32 whatever the band's storage dtype."""
+    """y = A x; x is the logical (ncols,) vector, or an (ncols, C)
+    block of C <= 2 columns multiplied in one stream of the band (y is
+    then (NT*R, C)). The product is accumulated in f32 whatever the
+    band's storage dtype."""
     return kernels.band_mv(bm.dense, x.float().contiguous(), bm.shift0,
                            bm.cchunk, bm.ncols)
 
@@ -1128,13 +1131,16 @@ def band_fgmres(amg: BandAMG, b: torch.Tensor, m: int = 16):
 # ---------------------------------------------------------------------- #
 
 def _complex_op(Aop: BandMatrix, Ai: BandMatrix, n: int):
-    """(Ar + i Ai)(xr + i xi) as four K1 products on the real bands."""
+    """(Ar + i Ai)(xr + i xi) as two two-column K1 products on the real
+    bands (one launch and one stream of each band): P = Ar [xr, xi],
+    Q = Ai [xr, xi], yr = P[:, 0] - Q[:, 1], yi = P[:, 1] + Q[:, 0]. On
+    the card this is bitwise the four one-column products of the JAX
+    package's apply (a two-column column is the one-column product)."""
     def opc(xr, xi):
-        ar_xr = band_matvec(Aop, xr)[:n]
-        ar_xi = band_matvec(Aop, xi)[:n]
-        ai_xr = band_matvec(Ai, xr)[:n]
-        ai_xi = band_matvec(Ai, xi)[:n]
-        return ar_xr - ai_xi, ar_xi + ai_xr
+        X = torch.stack([xr, xi], dim=1)
+        P = band_matvec(Aop, X)[:n]
+        Q = band_matvec(Ai, X)[:n]
+        return P[:, 0] - Q[:, 1], P[:, 1] + Q[:, 0]
     return opc
 
 
@@ -1255,7 +1261,7 @@ def band_csym_fgmres_fused(amg: BandAMG, Aop: BandMatrix, Ai: BandMatrix,
     most ``tol``. The JAX package runs the cycles in one device
     ``while_loop``; here the host loops, with one blocking read of the
     residual per cycle. Each cycle applies the complex operator m + 1
-    times (4(m + 1) K1 launches): the residual a cycle ends with is the
+    times (2(m + 1) K1 launches): the residual a cycle ends with is the
     next cycle's start, where the JAX loop recomputes it from the same
     x (bitwise the same inputs). The driver still measures the f64
     contract metric on the host afterwards. Returns ``(xr, xi, relative

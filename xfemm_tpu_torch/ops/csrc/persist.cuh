@@ -10,7 +10,7 @@
 //    launch (tags start at 1), and the spin needs every block of the
 //    grid resident: launch it cooperatively.
 //  - a ring of shared-memory stages filled by TMA bulk copies
-//    (cp.async.bulk) from a producer thread: a `full` mbarrier per stage
+//    (cp.async.bulk) from a producer thread (also used by band_mv.cu): a `full` mbarrier per stage
 //    completes when its bytes have landed, an `empty` one when its
 //    readers have released it; both sides walk the ring with a cursor
 //    that carries the stage and its phase parity.
@@ -107,6 +107,22 @@ __device__ __forceinline__ void ring_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ring_copy for data read once (a band streamed through the ring): the
+// copy carries an L2 evict-first policy, so its lines are the first to
+// leave L2 and the vectors read beside the stream stay cached.
+__device__ __forceinline__ void ring_copy_once(void* dst, const void* src,
+                                               unsigned bytes, uint64_t* bar) {
+  if (bytes == 0) return;
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
       : "memory");
 }
 

@@ -14,9 +14,14 @@ bt_qbwd    csrc/bt_qbwd.cu             blocktri.py::_bt_apply_pallas q_kernel
                                        and bwd_kernel
 =========  ==========================  =====================================
 
-The forward sweep, and the Sinv product with the backward sweep, each
-run as ONE persistent cooperative launch with one exchange of flagged
-words between its blocks per block step (``csrc/persist.cuh``): an
+K1 is a persistent normal launch, one or two blocks per SM: in each, a
+producer thread streams row slabs of the band through a TMA ring of
+shared-memory stages (``csrc/persist.cuh``) while eight warps reduce
+them against the tile's x window, for one or two columns of x per
+launch (the AC complex apply's two); its split and ring are planned in
+Python (``_mv_plan``). The forward sweep, and the Sinv product with the
+backward sweep, each run as ONE persistent cooperative launch with one
+exchange of flagged words between its blocks per block step (``csrc/persist.cuh``): an
 all-gather of y_{t-1} in the forward sweep, a reduce of G^T z partials
 in the backward one. Their row splits and shared-memory rings are
 planned in Python (``_fwd_plan``, ``_qbwd_plan``). Each source is
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -122,7 +128,8 @@ def build() -> dict[str, pathlib.Path]:
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _SIGS = {
-    "band_mv": [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _INT, _INT, _PTR],
+    "band_mv": [_PTR] * 3 + [_INT] * 12 + [_PTR],
+    "band_mv_occupancy": [_INT, _INT],
     "band_sym": [_PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _INT,
                  _INT, _INT, _PTR],
     "bt_fwd": [_PTR] * 4 + [_INT] * 9 + [_PTR, _PTR],
@@ -200,22 +207,26 @@ def fp32_matmul():
 def band_mv_plain(dense: torch.Tensor, x: torch.Tensor, shift0: int,
                   cchunk: int, ncols: int) -> torch.Tensor:
     """Plain version of K1 (the JAX package's XLA lowering,
-    band.py:120-134): K shifted chunk views of the zero-padded x form
-    the per-tile windows, then one batched contraction in fp32. x is
-    rounded to the band's storage dtype first."""
+    band.py:120-134), for a (ncols,) x or each column of an (ncols, C)
+    one: K shifted chunk views of the zero-padded x form the per-tile
+    (NT, W, C) windows, then one batched contraction in fp32. x is
+    rounded to the band's storage dtype first. Returns y (NT*R,) or
+    (NT*R, C), as x."""
     NT, R, W = dense.shape
     K = W // cchunk
     xs = x.to(dense.dtype).float()
+    xs = xs[:, None] if x.dim() == 1 else xs
+    C = xs.shape[1]
     lpad = max(0, -shift0) * cchunk
     total = (NT + max(0, shift0) + K) * cchunk + lpad
-    xpad = torch.zeros(total, dtype=torch.float32, device=x.device)
+    xpad = torch.zeros((total, C), dtype=torch.float32, device=x.device)
     xpad[lpad:lpad + ncols] = xs[:ncols]
-    xc = xpad.view(-1, cchunk)
+    xc = xpad.view(-1, cchunk, C)
     base = shift0 + lpad // cchunk
     wins = torch.cat([xc[base + s: base + s + NT] for s in range(K)], dim=1)
     with fp32_matmul():
-        y = torch.bmm(_widened(dense), wins[:, :, None])[:, :, 0]
-    return y.reshape(-1)
+        y = torch.bmm(_widened(dense), wins)
+    return y.reshape(-1) if x.dim() == 1 else y.reshape(NT * R, C)
 
 
 #: fp32 copies of the bf16 bands the plain versions read on the host,
@@ -241,21 +252,133 @@ def _widened(dense: torch.Tensor) -> torch.Tensor:
     return wide
 
 
+#: K1's consumer warps, ring limit, mbarrier area and resident blocks
+#: per SM at most (csrc/band_mv.cu WARPS, MAX_STAGES, BAR_BYTES, its
+#: launch bounds), and the bytes a ring stage aims at
+_MV_WARPS = 8
+_MV_MAX_STAGES = 32
+_MV_BAR_BYTES = 1024
+_MV_MAX_BLOCKS_PER_SM = 2
+_MV_STAGE_BYTES = 8192
+#: shared memory of one SM, and what the card reserves per block (H100)
+SM_SMEM = 233_472
+SMEM_RESERVED = 1024
+
+
+class MvPlan(NamedTuple):
+    """Grid, work split and shared-memory ring of one K1 launch."""
+    blocks: int         # grid: blocks_per_sm x SMs, at most one per item
+    blocks_per_sm: int  # resident blocks per SM the ring is sized for
+    items: int          # (tile, row slab) work items: NT * slabs per tile
+    stage_rows: int     # band rows of one slab, which one stage holds
+    stages: int         # ring stages, a multiple of the consumer warps
+    lanes_per_row: int  # lanes that reduce one row (a power of two)
+    smem_bytes: int     # dynamic shared memory of one block
+
+
+def _mv_smem(W: int, item: int, C: int, stage_rows: int,
+             stages: int) -> int:
+    """Shared memory of one K1 block (csrc/band_mv.cu smem_need):
+    mbarriers, the ring, and the window of C x W values in the band's
+    storage type."""
+    return (_MV_BAR_BYTES + stages * stage_rows * W * item
+            + C * W * item)
+
+
+@functools.lru_cache(maxsize=256)
+def _mv_plan(NT: int, R: int, W: int, dtype: torch.dtype, C: int,
+             n_sm: int) -> MvPlan:
+    """Work split and ring of K1 for an (NT, R, W) band and C columns on
+    a card of ``n_sm`` SMs. A stage holds the fewest whole rows (a power
+    of two, at most R) that reach _MV_STAGE_BYTES, halved while the band
+    has fewer items than consumer warps on the card (down to the rows a
+    warp reduces at once); two blocks per SM where a ring of at least
+    _MV_WARPS stages fits in half an SM (two producers and 16 consumer
+    warps per SM; the narrow bf16 bands are bound by their consumers),
+    else one; the ring takes as many stages as fit, in multiples of the
+    consumer warps (each stage then has one reader); a row is reduced by
+    the fewest
+    lanes (a power of two, at most 32) that take at most four of its
+    16-byte slices each. Raises on a row that is not a multiple of 16
+    bytes or a ring of fewer than _MV_WARPS stages."""
+    if C not in (1, 2):
+        raise ValueError(f"band_mv: {C} columns (1 or 2 per launch)")
+    item = torch.empty((), dtype=dtype).element_size()
+    row = W * item
+    if NT <= 0 or R <= 0 or W <= 0 or row % 16:
+        raise ValueError(f"band_mv: band ({NT}, {R}, {W}) {dtype}: rows "
+                         "must be non-empty multiples of 16 bytes")
+    slices = row // 16
+    lpr = 1
+    while lpr < 32 and lpr * 4 < slices:
+        lpr *= 2
+    group = min(R, 32 // lpr)         # rows a warp reduces at once
+    stage_rows = 1
+    while stage_rows < R and stage_rows * row < _MV_STAGE_BYTES:
+        stage_rows *= 2
+    stage_rows = min(stage_rows, R)
+    while (stage_rows // 2 >= group
+           and NT * -(-R // stage_rows) < n_sm * _MV_WARPS):
+        stage_rows //= 2
+    base = _mv_smem(W, item, C, stage_rows, 0)
+    per_stage = stage_rows * row
+    for bps in range(_MV_MAX_BLOCKS_PER_SM, 0, -1):
+        budget = min(SMEM_LIMIT, SM_SMEM // bps - SMEM_RESERVED)
+        stages = min(_MV_MAX_STAGES, max(0, budget - base) // per_stage
+                     // _MV_WARPS * _MV_WARPS)
+        if stages >= _MV_WARPS:
+            break
+    else:
+        raise ValueError(f"band_mv: band ({NT}, {R}, {W}) {dtype} with "
+                         f"{C} columns leaves no room for a ring")
+    items = NT * -(-R // stage_rows)
+    return MvPlan(blocks=min(items, n_sm * bps), blocks_per_sm=bps,
+                  items=items, stage_rows=stage_rows, stages=stages,
+                  lanes_per_row=lpr,
+                  smem_bytes=_mv_smem(W, item, C, stage_rows, stages))
+
+
+def mv_blocks_per_sm(dtype: torch.dtype, C: int, smem_bytes: int) -> int:
+    """Blocks of K1 resident on one SM at ``smem_bytes`` of shared memory
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n = _fn("band_mv", "band_mv_occupancy", dtype)(C, smem_bytes)
+    _raise_on(max(0, -n), "band_mv occupancy")
+    return n
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    """SMs of CUDA card ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def band_mv(dense: torch.Tensor, x: torch.Tensor, shift0: int, cchunk: int,
             ncols: int) -> torch.Tensor:
-    """y (NT*R,) = band (NT, R, W) times the logical (ncols,) vector x,
-    accumulated in fp32 for f32 and bf16 bands."""
+    """y = band (NT, R, W) times the logical (ncols,) vector x, or times
+    each column of an (ncols, C) x for C <= 2 in ONE stream of the band:
+    y is (NT*R,) or (NT*R, C), accumulated in fp32 for f32 and bf16
+    bands. Column c of a two-column call is bitwise equal to a
+    one-column call on column c. One launch per call, whatever C is."""
     if not x.is_cuda:
         return band_mv_plain(dense, x, shift0, cchunk, ncols)
     NT, R, W = dense.shape
-    if x.dtype != torch.float32 or x.numel() < ncols:
-        raise ValueError("band_mv: x must be float32 with ncols entries")
+    if x.dim() not in (1, 2) or (x.dim() == 2 and x.shape[1] not in (1, 2)):
+        raise ValueError("band_mv: x must be (ncols,) or (ncols, C) with "
+                         "C <= 2")
+    C = 1 if x.dim() == 1 else x.shape[1]
+    if x.dtype != torch.float32 or x.shape[0] < ncols:
+        raise ValueError("band_mv: x must be float32 with ncols rows")
     _check("band_mv", dense, x)
-    y = torch.empty(NT * R, dtype=torch.float32, device=x.device)
+    if dense.data_ptr() % 16:
+        raise ValueError("band_mv: the band must be 16-byte aligned")
+    plan = _mv_plan(NT, R, W, dense.dtype, C, _n_sm(x.device.index))
+    y = torch.empty((NT * R,) if x.dim() == 1 else (NT * R, C),
+                    dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = _fn("band_mv", "band_mv", dense.dtype)(
             dense.data_ptr(), x.data_ptr(), y.data_ptr(), NT, R, W, cchunk,
-            shift0, ncols, _stream(x))
+            shift0, ncols, C, plan.stage_rows, plan.stages,
+            plan.lanes_per_row, plan.blocks, plan.smem_bytes, _stream(x))
     _raise_on(rc, "band_mv")
     LAUNCHES["band_mv"] += 1
     return y
