@@ -291,28 +291,34 @@ def test_build_ac_matches_jax():
 
 def test_dispatch_raises_only_for_heat_and_electrostatics(fixtures,
                                                           monkeypatch):
-    """``models.solve`` routes every magnetics problem (planar and
-    axisymmetric, static and AC) to the port's model and raises
-    ``NotImplementedError`` for heat flow and electrostatics alone."""
-    from xfemm_tpu_torch.constants import FileType
-    from xfemm_tpu_torch.models import (axisymmetric, harmonic, harmonicaxi,
+    """``models.solve`` routes all six problem families to the port's
+    models -- planar and axisymmetric magnetostatics, planar and
+    axisymmetric AC, heat flow and electrostatics -- with the keyword
+    arguments passed on, and raises for none of them (the heat-flow and
+    electrostatics raise is gone; only an unknown file type raises)."""
+    from xfemm_tpu_torch.models import (axisymmetric, electrostatics,
+                                        harmonic, harmonicaxi, heatflow,
                                         magnetostatics)
 
     routed = []
-    for mod in (axisymmetric, harmonic, harmonicaxi, magnetostatics):
+    mods = (axisymmetric, electrostatics, harmonic, harmonicaxi, heatflow,
+            magnetostatics)
+    for mod in mods:
         monkeypatch.setattr(mod, "solve",
                             lambda p, m, _n=mod.__name__, **kw:
-                            routed.append(_n.split(".")[-1]))
-    for stem in ("Temp", "AxiSolenoid", "ACtest", "ACaxi"):
-        tmodels.solve(tfemfile.load(str(fixtures / f"{stem}.fem")), None)
-    assert routed == ["magnetostatics", "axisymmetric", "harmonic",
-                      "harmonicaxi"]
-    for ft, item in ((FileType.HEATFLOW, "heat flow"),
-                     (FileType.ELECTROSTATICS, "electrostatics")):
-        p = tfemfile.load(str(fixtures / "Temp.fem"))
-        p.filetype = ft
-        with pytest.raises(NotImplementedError, match=item):
-            tmodels.solve(p, None)
+                            routed.append((_n.split(".")[-1], kw)))
+    for name in ("Temp.fem", "AxiSolenoid.fem", "ACtest.fem", "ACaxi.fem",
+                 "HeatTemp0.feh", "ElecTest.fee"):
+        tmodels.solve(tfemfile.load(str(fixtures / name)), None,
+                      device="cpu", hbm_bytes=1e9)
+    assert [r[0] for r in routed] == [
+        "magnetostatics", "axisymmetric", "harmonic", "harmonicaxi",
+        "heatflow", "electrostatics"]
+    assert all(r[1] == dict(device="cpu", hbm_bytes=1e9) for r in routed)
+    p = tfemfile.load(str(fixtures / "Temp.fem"))
+    p.filetype = None
+    with pytest.raises(ValueError, match="unsupported problem type"):
+        tmodels.solve(p, None)
 
 
 def test_ac_through_the_verbs_matches_jax(fixtures, cpu_only):

@@ -15,9 +15,8 @@ cfemm/fmesher/main.cpp:38-57):
 another device (``--device cpu`` runs the kernels' plain PyTorch
 versions and needs ``--hbm-bytes``, the memory the band planner plans
 against); without a card and without ``--device cpu`` they fail.
-Heat-flow (.feh) and electrostatic (.fee) solves raise until ROADMAP
-A.4 ports them. The JAX package's ``--devices N`` (domain
-decomposition) is not ported yet (ROADMAP A.6).
+The JAX package's ``--devices N`` (domain decomposition) is not ported
+yet (ROADMAP A.6).
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ import torch
 
 from .ops.band import BandAMG, BandLevel, BandMatrix, FineLayout, Sidecar
 from .ops.blocktri import BTCoarse, BTFactor
+from .ops.newton import DeviceHeat
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -101,3 +102,19 @@ def cband_entry(ent, device="cpu") -> dict:
             "bt": _opt(bt_factor, ent.get("bt"), device),
             "perm": np.asarray(ent["perm"]),
             "iperm": np.asarray(ent["iperm"])}
+
+
+def device_heat(dh, device="cpu") -> DeviceHeat:
+    """A JAX ``DeviceHeat`` (the heat loop's device data) as the port's
+    ``newton.DeviceHeat``: every field the port carries, read by name,
+    integer maps as int64 and values as f32 (None stays None; the JAX
+    tuple's whole-CSR maps, which its loop never reads, are left
+    out)."""
+    def field(a):
+        if a is None:
+            return None
+        t = tensor(a, device)
+        return t.float() if t.is_floating_point() else t.long()
+
+    return DeviceHeat(**{name: field(getattr(dh, name))
+                         for name in DeviceHeat._fields})

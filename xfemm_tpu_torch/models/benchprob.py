@@ -98,3 +98,46 @@ def build_ac(target_nodes: int = 125_000, freq: float = 50.0) -> Problem:
     steel.mu_x = steel.mu_y = 1000.0
     steel.Cduct = 2.0
     return p
+
+
+def build_heat(target_nodes: int = 230_000) -> Problem:
+    """Nonlinear K(T) heat-flow benchmark: a heated cylinder (volume
+    source, strongly temperature-dependent conductivity) inside a
+    conducting box with a fixed-temperature outer boundary -- the
+    successive-substitution outer loop of hsolver.cpp:458. The port's
+    chip_smoke.py drives build_heat(230_000) on the card."""
+    from ..geometry.problem import HeatMaterial
+
+    p = Problem(filetype=FileType.HEATFLOW)
+    p.Precision = 1e-08
+    p.MinAngle = 30.0
+    p.Depth = 1.0
+    p.LengthUnits = LengthUnit.METERS
+    p.ProblemType = ProblemType.PLANAR
+    p.DoSmartMesh = False
+
+    medium = HeatMaterial(name="Medium", Kx=0.8, Ky=0.8)
+    core = HeatMaterial(name="Core", qv=2.0e4)
+    core.Tdata = [0.0, 100.0, 300.0, 600.0, 1000.0]
+    core.Kdata = [60.0, 45.0, 28.0, 16.0, 10.0]
+    p.blockproplist = [medium, core]
+    p.lineproplist = [BoundaryProp(name="T0", BdryFormat=0, Tset=300.0)]
+    p.nodeproplist = [PointProp(name="origin")]
+
+    corners = [(-1, -1), (1, -1), (1, 1), (-1, 1)]
+    ids = [p.add_node(x, y) for x, y in corners]
+    for i in range(4):
+        p.linelist.append(Segment(n0=ids[i], n1=ids[(i + 1) % 4],
+                                  BoundaryMarker=0))
+    a = p.add_node(0.3, 0.0)
+    b = p.add_node(-0.3, 0.0)
+    p.arclist.append(ArcSegment(n0=a, n1=b, ArcLength=180,
+                                MaxSideLength=5.0))
+    p.arclist.append(ArcSegment(n0=b, n1=a, ArcLength=180,
+                                MaxSideLength=5.0))
+    max_area = 0.857 * 4.0 / max(target_nodes, 100)
+    p.labellist = [
+        BlockLabel(x=0.0, y=0.9, BlockType=0, MaxArea=max_area),
+        BlockLabel(x=0.0, y=0.0, BlockType=1, MaxArea=max_area),
+    ]
+    return p

@@ -1,4 +1,5 @@
-"""Device-resident Newton loop for planar nonlinear magnetostatics.
+"""Device-resident Newton loop for planar nonlinear magnetostatics
+(and the K(T) loop of heat flow).
 
 The reference's Newton loop (static2d.cpp:177-1016) re-assembles and
 re-solves once per iteration; the host chain of models/magnetostatics.py
@@ -32,8 +33,13 @@ not ported and ``rebuild_band_amg`` keeps only its effect on the
 session: the refreshed ``dvec`` and sidecar values installed and the
 fine level's bf16 copy ``Abf`` dropped. ``DeviceNewton`` carries only
 the fields the loop reads (the JAX tuple's whole-CSR maps, which its
-loops never read, are left out). The heat loop (``setup_heat``,
-``run_heat``) comes with the heat-flow slice.
+loops never read, are left out).
+
+The heat-flow K(T) substitution loop (``setup_heat``, ``run_heat``)
+shares the maps and the operator refresh: its element matrices are
+linear in the conductivity, so each step is a batched piecewise-linear
+lookup (``interp_rows``, the rule of ``jnp.interp``), the same delta
+sidecar refresh and the same inner solve, without relaxation.
 """
 
 from __future__ import annotations
@@ -622,3 +628,234 @@ def _scatter_refresh(dn: DeviceNewton, lv0, Me) -> None:
     if lv0.oob is not None and dn.oob_upd_pos is not None:
         lv0.oob.vals.index_put_((dn.oob_upd_pos,),
                                 dn.oob_static + contrib[dn.oob_upd_rank])
+
+
+# ---------------------------------------------------------------------- #
+# heat flow: the fused K(T) successive-substitution loop                  #
+# ---------------------------------------------------------------------- #
+
+class DeviceHeat(NamedTuple):
+    """Static device data of the K(T) successive-substitution loop (the
+    heat analogue of ``run``; hsolver.cpp:458 AnalyzeProblem outer
+    loop). The element matrices are LINEAR in the isotropic
+    conductivity k(T): mat = mat_0 + k * mat_k, so the operator refresh
+    is one clamped piecewise-linear lookup plus a scaled scatter. The
+    map fields are those of ``DeviceNewton``, read by
+    ``_refresh_operator`` under the same names. Integer maps are int64,
+    values f32."""
+    idxT: torch.Tensor        # (S, 3) reduced DOF ids of K(T) elements
+    sgnT: torch.Tensor        # (S, 3) +-1 fold signs
+    Tc: torch.Tensor          # (S, P) padded temperature knots
+    Kc: torch.Tensor          # (S, P) padded conductivity knots
+    mat_k: torch.Tensor       # (S, 3, 3) d(block mat)/dk
+    mat_0: torch.Tensor       # (S, 3, 3) k-independent part
+    ge_k: torch.Tensor        # (S, 3) mat_k @ (sgn * g) Dirichlet coupling
+    rhs_pre: torch.Tensor     # (n,) rhs with changed elements at k=0
+    scat_idx: torch.Tensor    # (S*3,)
+    scat_w: torch.Tensor      # (S*3,) -sign * keep
+    perm: torch.Tensor
+    iperm: torch.Tensor
+    souter: torch.Tensor
+    sub_rank: torch.Tensor
+    sub_zero: torch.Tensor
+    band_sub_rows: torch.Tensor
+    band_sub_cols: torch.Tensor
+    band_sub_rank: torch.Tensor
+    band_sub_static: torch.Tensor
+    delta_rows: torch.Tensor
+    delta_cols: torch.Tensor
+    delta_brows: torch.Tensor
+    delta_bcols: torch.Tensor
+    delta_rank: torch.Tensor
+    delta_static: torch.Tensor
+    kmask: "torch.Tensor | None" = None
+    dvec_rows: "torch.Tensor | None" = None
+    dvec_rank: "torch.Tensor | None" = None
+    dvec_static: "torch.Tensor | None" = None
+    oob_upd_pos: "torch.Tensor | None" = None
+    oob_upd_rank: "torch.Tensor | None" = None
+    oob_static: "torch.Tensor | None" = None
+
+
+def setup_heat(session, ridx, rsign, tris, fixed, fixed_vals, mats_T,
+               mats_K, blk, mat_k_full, mat_0_full, b_nofixed, *, device,
+               hbm: float | None = None):
+    """Build the device data of the heat loop on ``device``, or None
+    when ineligible (``_band_eligible``, no K(T) elements, or a
+    radiation boundary, which the loop does not re-linearize).
+
+    ``mat_k_full`` / ``mat_0_full`` are (T, 3, 3) block-matrix pieces
+    for ALL elements (mat = mat_0 + k * mat_k in the sign convention the
+    ElementBlock carries); ``mats_T`` / ``mats_K`` map block-label id ->
+    K(T) curve lists. Unlike the magnetostatic setup, nonzero Dirichlet
+    temperatures are supported: the per-iteration A.g RHS correction of
+    the changed elements is linear in k and lives in ``ge_k``."""
+    if not _band_eligible(session, device, hbm):
+        return None
+    _slot_s, _souter_s, _kmask_s, ch_masks = session.sub_cache
+    if len(ch_masks) > 1 and any(m is not None for m in ch_masks[1:]):
+        # a re-linearized radiation boundary also changes per iteration;
+        # the loop only refreshes the element block
+        return None
+    maps = _band_refresh_maps(session, fixed, device)
+    if maps is None:
+        return None
+    ns = maps["ns"]
+
+    f32 = np.float32
+    idxT = ridx[tris[ns]]
+    sgnT = rsign[tris[ns]]
+    keep = (~fixed).astype(f32)
+    scat_idx = idxT.reshape(-1)
+    scat_w = (-sgnT.reshape(-1) * keep[scat_idx]).astype(f32)
+
+    # padded per-element K(T) curves (clamped linear interpolation; pad
+    # with a strictly increasing far tail so the right clamp holds)
+    P = max(max(len(mats_T[b]) for b in set(blk[ns].tolist())), 2)
+    S = ns.size
+    Tc = np.zeros((S, P), f32)
+    Kc = np.zeros((S, P), f32)
+    for bidx in set(blk[ns].tolist()):
+        sel = blk[ns] == bidx
+        Td = list(mats_T[bidx])
+        Kd = list(mats_K[bidx])
+        while len(Td) < P:
+            Td.append((Td[-1] if Td else 0.0) + 1e6)
+            Kd.append(Kd[-1] if Kd else 1.0)
+        Tc[sel] = np.asarray(Td, f32)
+        Kc[sel] = np.asarray(Kd, f32)
+
+    # Dirichlet RHS coupling: rhs = rhs_pre + scatter(-sgn*keep * k*ge_k)
+    g = np.where(fixed, fixed_vals, 0.0)
+    gl = sgnT * g[idxT]
+    ge_k = np.einsum("tjk,tk->tj", mat_k_full[ns], gl)
+    ge_0 = np.einsum("tjk,tk->tj", mat_0_full[ns], gl)
+    # b_nofixed holds NO A.g correction of the changed elements: fold
+    # their k-independent part in here
+    b_pre = np.asarray(b_nofixed, np.float64).copy()
+    np.add.at(b_pre, scat_idx, -(sgnT.reshape(-1) * ge_0.reshape(-1)))
+    b_pre = np.where(fixed, fixed_vals, b_pre)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return DeviceHeat(
+        idxT=t(idxT, torch.int64), sgnT=t(sgnT), Tc=t(Tc), Kc=t(Kc),
+        mat_k=t(mat_k_full[ns]), mat_0=t(mat_0_full[ns]), ge_k=t(ge_k),
+        rhs_pre=t(b_pre), scat_idx=t(scat_idx, torch.int64),
+        scat_w=t(scat_w), **maps["fields"])
+
+
+def interp_rows(x, xp, fp):
+    """Row-batched ``jnp.interp``: ``x`` (S, m) against each row's knots
+    ``xp`` / values ``fp`` (S, P), with the same rule -- the interval
+    from ``searchsorted(right=True)`` clamped to [1, P-1], ``fp[i-1]`` on
+    a zero-width interval, constant clamps below ``xp[:, 0]`` and above
+    ``xp[:, -1]``."""
+    P = xp.shape[1]
+    i = torch.searchsorted(xp, x, right=True).clamp(1, P - 1)
+    x0 = torch.gather(xp, 1, i - 1)
+    f0 = torch.gather(fp, 1, i - 1)
+    dx = torch.gather(xp, 1, i) - x0
+    df = torch.gather(fp, 1, i) - f0
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, f0,
+                    f0 + (x - x0) / torch.where(dx0, torch.ones_like(dx),
+                                                dx) * df)
+    f = torch.where(x < xp[:, :1], fp[:, :1], f)
+    return torch.where(x > xp[:, -1:], fp[:, -1:], f)
+
+
+def _heat_elements(dh: DeviceHeat, V):
+    """Element conductivity from the iterate: the 3-node average of the
+    clamped piecewise-linear K(T) -- the average of K at the corner
+    temperatures, NOT K of the average temperature (hsolver.cpp:573-575
+    and the host loop's kvals[tris].mean) -- then the changed-element
+    block matrices mat = mat_0 + k * mat_k."""
+    Tl = dh.sgnT * V[dh.idxT]
+    kav = interp_rows(Tl, dh.Tc, dh.Kc).mean(dim=1)
+    mat = dh.mat_0 + kav[:, None, None] * dh.mat_k
+    return kav, mat
+
+
+def run_heat(dn: DeviceHeat, amg: BandAMG, V, state,
+             tol_floor: float = 3e-7, target_res: float = 9e-7, bt=None,
+             inner_iter: int = 400, max_steps: int = 30,
+             cg_budget: int = 0):
+    """Run the K(T) successive-substitution middle as one loop on the
+    device: conductivity lookup -> operator refresh (delta sidecar on
+    the frozen band) -> preconditioned CG at the inexact-forcing
+    tolerance -> convergence / stall test, with ``run``'s stopping rules
+    (``res`` above ``target_res``, at most ``max_steps`` steps, a
+    three-step stall at 0.95, the ``cg_budget``). The reference's
+    substitution is undamped (hsolver.cpp:458), so there is no
+    relaxation state. The accepting pass at the full contract Precision
+    runs on the host afterwards.
+
+    ``state`` is a (1,) f32 tensor holding the incoming outer residual.
+    ``amg`` is not modified. Returns ``(V, dvec, oob_vals, stats)`` as
+    ``run`` does, with ``stats`` = (res, steps, cg_total) as a (3,) f32
+    tensor."""
+    lv0 = amg.levels[0]
+    f32 = torch.float32
+    res = state.to(f32)[0]
+    dense = lv0.A.dense
+    entry_vals = dense.view(-1, dense.shape[2])[
+        dn.delta_brows, dn.delta_bcols].to(f32)
+    oob_vals = lv0.oob.vals if lv0.oob is not None else None
+    contrib = dn.sub_zero
+    V = V.to(f32)
+    n = V.shape[0]
+    best = res
+    since = torch.zeros((), dtype=torch.int32, device=V.device)
+    k = 0
+    cg_tot = 0
+    while k < max_steps and (cg_budget <= 0 or cg_tot < cg_budget):
+        # the one blocking read of the step
+        if not bool((res > target_res) & (since < 3)):
+            break
+        lv_cur = dataclasses.replace(
+            lv0, Abf=None, oob=None if oob_vals is None
+            else Sidecar(lv0.oob.rows, lv0.oob.cols, oob_vals))
+        amg_cur = dataclasses.replace(amg, levels=(lv_cur,)
+                                      + amg.levels[1:])
+        kav, mat = _heat_elements(dn, V)
+        # _refresh_operator computes souter * (-Me); the block carries
+        # ``mat`` directly, so pass Me = -mat
+        amg_new, contrib, oob_new = _refresh_operator(dn, amg_cur, -mat,
+                                                      entry_vals)
+        dbe = kav[:, None] * dn.ge_k
+        b = dn.rhs_pre.index_add(0, dn.scat_idx, dn.scat_w * dbe.reshape(-1))
+        lvn = amg_new.levels[0]
+        bp = b[dn.perm]
+        r = bp - band_mod.band_apply(lvn.A, lvn.dvec, V[dn.perm], lvn.oob)
+        tol_k = torch.clamp(0.03 * res, tol_floor, 1e-4)
+        invd = lvn.invd
+        res0_sys = torch.dot(invd * bp, bp)
+        res_cur = torch.dot(invd * r, r)
+        tol_eff = torch.clamp(
+            tol_k * torch.sqrt(res0_sys / torch.clamp_min(res_cur, 1e-30)),
+            1e-7, 0.5)
+        scale = torch.clamp_min(r.abs().max(), 1e-30)
+        d_p, its = _inner_solve(amg_new, r / scale, tol_eff, inner_iter, bt,
+                                n)
+        V_new = V + (scale * d_p)[dn.iperm]
+        res_new = torch.linalg.norm(V_new - V) / torch.clamp_min(
+            torch.linalg.norm(V_new), 1e-30)
+        improved = res_new < 0.95 * best
+        best = torch.minimum(best, res_new)
+        since = torch.where(improved, torch.zeros_like(since), since + 1)
+        if oob_vals is not None:
+            oob_vals = oob_new
+        V, res = V_new, res_new
+        k += 1
+        cg_tot += int(its)
+    dvec = lv0.dvec
+    if dvec is not None and dn.dvec_rows is not None and k > 0:
+        dvec = dvec.index_put((dn.dvec_rows,),
+                              dn.dvec_static + contrib[dn.dvec_rank])
+    stats = torch.stack([res, torch.tensor(float(k), device=V.device),
+                         torch.tensor(float(cg_tot), device=V.device)])
+    return V, dvec, oob_vals, stats
