@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (xfemm_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--kernels-only | --large-only]
+    python3 chip_smoke.py [--kernels-only | --large-only | --heat-elec-only
+                           | --dd-only]
 
 Phases (any failure exits non-zero, with no result line):
 
@@ -110,6 +111,27 @@ Phases (any failure exits non-zero, with no result line):
    solve through the loop; both through the pyFEMM verbs, card against
    CPU path; K1, K2 and K3+K4 must launch on heat230k and elec250k
    (``--heat-elec-only`` runs phase 1 and this phase alone);
+3f. domain decomposition (slice 11), launches counted per path:
+   dd250k, ``magnetostatics.solve(..., devices=4)`` on the 250k problem
+   cold and warm (the per-part band (P, NT, R, W) and factor b, NB, the
+   host Newton passes, CG per refinement pass, the "dd" phase seconds,
+   ms per CG iteration and peak memory printed; the residual, band_dd on
+   every linear solve, A within 1e-5 of max|A| of the single-device
+   solve, K1, K2 and K3+K4 each launched a multiple of 4 times; the live
+   per-part bands and factors of the first and last part held against
+   the plain versions and timed against their bytes bound); the 100k
+   system of tests/test_band_dd_scaling.py at P = 2, 4, 8, 16 (CG beside
+   the JAX package's, 1e-8 of a host spsolve, its(16) <= 3 its(2));
+   heat230k cold (1e-5 of the K(T) loop's T), elec250k (1e-6 of the
+   single-device V), AxiSolenoid / ACtest / ACwound (golden, 1e-6) and
+   ac125k (the f64 complex halo PCG, 1e-6 of a host spsolve) at
+   devices=4; the f64 first-generation path (halo PCG with the Schwarz
+   AMG) on the 250k system's first linear system (1e-6 of a host
+   spsolve); the 250k problem at A5_HBM bytes with and without
+   XFEMM_TPU_COARSE_BT_SMOOTH (the levels that take a coarse factor,
+   CG, peak memory; A within 1e-5; the live coarse factor's sweeps
+   against the plain versions) (``--dd-only`` runs phase 1 and this
+   phase alone, with its own single-device 250k reference solve);
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
@@ -589,7 +611,9 @@ def kernel_phase(torch, seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def get_mesh(prob, nodes: int):
+def get_mesh(prob, nodes):
+    """The port's mesh of ``prob``, cached under .bench_cache/ by
+    ``nodes`` (the build target, or a name)."""
     from xfemm_tpu_torch.mesh import meshdata, mesher
     path = os.path.join(HERE, ".bench_cache", f"torch_mesh_{nodes}.npz")
     if os.path.exists(path):
@@ -2543,6 +2567,7 @@ def heat_230k(torch) -> dict:
         fail("the heat230k loop and host chain disagree")
     if not dref <= 1e-6:
         fail("the heat230k T is not a fixed point of its own conductivity")
+    REFERENCES["heat230k"] = T
     clear_solver_caches(torch)
     return out
 
@@ -2565,17 +2590,16 @@ def elec_250k(torch) -> dict:
     kernels' plain versions. Returns the launches of both solves."""
     import numpy as np
 
-    from xfemm_tpu_torch.mesh import mesher
     from xfemm_tpu_torch.ops import kernels, solver
     from xfemm_tpu_torch.utils import profiling
 
     clear_solver_caches(torch)
     prob = elec_problem(ELEC_AREA_SCALE)
     t0 = time.time()
-    mesh = mesher.mesh_problem(prob)
+    mesh = get_mesh(prob, "elec250k")
     print(f"elec250k: ElecTest.fee, label MaxArea x {ELEC_AREA_SCALE}: "
           f"{mesh.num_nodes} nodes, {mesh.num_elements} elements (meshed "
-          f"in {time.time() - t0:.1f} s)", flush=True)
+          f"in {time.time() - t0:.1f} s incl. cache)", flush=True)
     profiling.ENABLED = True
     kernels.reset_launches()
     sols, recs = [], []
@@ -2606,6 +2630,7 @@ def elec_250k(torch) -> dict:
         fail("elec250k V is not a finite per-node vector")
     if not (dref <= 1e-6 and dV <= 1e-6):
         fail("the elec250k solve misses the host reference")
+    REFERENCES["elec250k"] = V
     clear_solver_caches(torch)
     return {"elec250k": launches}
 
@@ -2743,6 +2768,510 @@ def heat_elec_paths(torch) -> dict:
     return paths
 
 
+DD_PARTS = 4              # devices=N of the slice's main path (dd250k)
+DD_SWEEP_NODES = 100_000  # tests/test_band_dd_scaling.py's system
+#: the JAX package's CG counts of that system on 2-16 virtual devices
+#: (PARITY.md, "Multi-chip scaling")
+JAX_SWEEP_ITS = {2: 145, 4: 197, 8: 260, 16: 301}
+DD_PHASES = ("dd csr assembly", "dd band setup", "dd band refresh",
+             "dd bt factor", "dd cg")
+#: the device memory size at which the 250k problem's band hierarchy has
+#: a split coarse level that is not stored triu and takes a
+#: block-tridiagonal smoother with XFEMM_TPU_COARSE_BT_SMOOTH set
+A5_HBM = 7.5928e9
+#: solutions of the heat and electrostatic paths, kept for the domain
+#: decomposition's checks
+REFERENCES: dict = {}
+
+
+class DDRecorder:
+    """Records, while active, every ``DistributedSession.solve`` and
+    ``solve_complex`` call: the engine that served it ("band_dd" or the
+    element-block "halo" PCG), its CG iterations, each band_dd call's CG
+    per refinement pass, and the sessions; with ``keep`` also each call's
+    system and solution. It wraps the class's methods and restores them
+    on exit."""
+
+    def __init__(self, keep: bool = False):
+        self.keep = keep
+        self.calls = []         # (engine, CG iterations)
+        self.passes = []        # CG per refinement pass of band_dd calls
+        self.sessions = []
+        self.systems = []       # (blocks, b, fixed_mask, fixed_vals, x)
+        self.coords = []        # each kept call's DOF coordinates
+        self._served = False
+
+    def __enter__(self):
+        from xfemm_tpu_torch.parallel import driver
+        cls = driver.DistributedSession
+        self._saved = {name: getattr(cls, name)
+                       for name in ("solve", "solve_complex",
+                                    "_solve_band_dd")}
+        real = self._saved
+
+        def band_dd(sess, *a, **kw):
+            out = real["_solve_band_dd"](sess, *a, **kw)
+            self._served = out is not None
+            if out is not None:
+                self.passes.append(list(sess.pass_iters))
+            return out
+
+        def wrap(name):
+            def solve(sess, *a, **kw):
+                self._served = False
+                out = real[name](sess, *a, **kw)
+                self.calls.append(("band_dd" if self._served else "halo",
+                                   int(out[2])))
+                if not any(s is sess for s in self.sessions):
+                    self.sessions.append(sess)
+                if self.keep:
+                    self.systems.append((*a[:4], out[0]))
+                    self.coords.append(kw.get("coords"))
+                return out
+            return solve
+
+        cls.solve = wrap("solve")
+        cls.solve_complex = wrap("solve_complex")
+        cls._solve_band_dd = band_dd
+        return self
+
+    def __exit__(self, *exc):
+        from xfemm_tpu_torch.parallel import driver
+        for name, fn in self._saved.items():
+            setattr(driver.DistributedSession, name, fn)
+        return False
+
+    def engines(self) -> str:
+        eng = [c[0] for c in self.calls]
+        return ", ".join(f"{e} x{eng.count(e)}" for e in sorted(set(eng)))
+
+
+def dd_phase_seconds(profiling) -> str:
+    return ", ".join(f"{name} {profiling.phase_seconds(name):.3f} s"
+                     for name in DD_PHASES)
+
+
+def dd_geometry(sess) -> str:
+    st = sess._bdd
+    if st is None:
+        return "no band_dd state"
+    return (f"per-part band (P, NT, R, W) = ({st.ndev}, {st.NT}, 128, "
+            f"{st.W}), shift0 {st.shift0}, nloc {st.nloc}; factor b={st.b} "
+            f"NB={st.NB}")
+
+
+def check_dd_live(torch, label: str, sess) -> None:
+    """K1 on the session's live per-part bands (the first and the last
+    part) and the sweeps (K2, K3+K4) on their live factors against the
+    plain versions (check_live_hierarchy: K1 at TOL, the sweeps step by
+    step at TOL and chained, each timed against its bytes bound). These
+    launches are checks, not the path's."""
+    from types import SimpleNamespace
+
+    from xfemm_tpu_torch.ops.band import BandMatrix
+    from xfemm_tpu_torch.parallel import band_dd
+    st = sess._bdd
+    dense, _oob, _invd = band_dd.device_values(st, st.Ap_pattern)
+    for p in sorted({0, st.ndev - 1}):
+        band = BandMatrix(dense[p], st.shift0, band_dd.CCHUNK, st.nloc)
+        check_live_hierarchy(torch, f"{label} part {p}",
+                             SimpleNamespace(levels=()),
+                             band_dd.part_factor(sess._bdd_bt, p),
+                             ((f"band {p}", band),))
+    del dense
+    torch.cuda.empty_cache()
+
+
+def dd_250k(torch, prob, mesh, A_ref):
+    """Phase: the slice's main path, ``magnetostatics.solve(...,
+    devices=4)`` on the 250k problem, cold and warm on the card (a fresh
+    session each, as each solve makes one): the Newton chain on the host,
+    every linear solve on the sharded band engine (K1 per part's band,
+    K2 and K3+K4 per part's factor). Prints the per-part geometry, the
+    host Newton passes, CG per refinement pass, the "dd" phase seconds,
+    ms per CG iteration and peak memory; checks the residual, band_dd on
+    every solve, A within 1e-5 of max|A_ref| (the single-device solve)
+    and K1, K2, K3+K4 launched a multiple of 4 times; holds the live
+    per-part bands and factors against the plain versions. Returns the
+    launches and the first linear system of the cold solve."""
+    import numpy as np
+
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.utils import profiling
+
+    clear_solver_caches(torch)
+    profiling.ENABLED = True
+    kernels.reset_launches()
+    for k in solver.MASKED:
+        solver.MASKED[k] = 0
+    first = None
+    try:
+        for label in ("cold", "warm"):
+            profiling.reset()
+            torch.cuda.reset_peak_memory_stats()
+            with DDRecorder(keep=label == "cold") as rec:
+                t0 = time.time()
+                sol = magnetostatics.solve(prob, mesh, devices=DD_PARTS)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+            (sess,) = rec.sessions
+            cg = sum(c[1] for c in rec.calls)
+            cg_s = profiling.phase_seconds("dd cg")
+            dA = float(np.abs(sol.A - A_ref).max() / np.abs(A_ref).max())
+            print(f"dd250k {label} solve (devices={DD_PARTS}): {dt:.3f} s, "
+                  f"residual {sol.residual:.3e}, Newton iterations "
+                  f"{sol.newton_iterations} (host passes "
+                  f"{len(rec.calls)}), CG iterations {cg}, per "
+                  f"refinement pass {rec.passes}; engines "
+                  f"{rec.engines()}; {dd_geometry(sess)}; "
+                  f"{dd_phase_seconds(profiling)}; "
+                  f"{1e3 * cg_s / max(cg, 1):.3f} ms per CG iteration; peak "
+                  f"device memory {peak / 1e9:.2f} GB; max|A - A_ref| / "
+                  f"max|A_ref| {dA:.3e}", flush=True)
+            print(profiling.report(), flush=True)
+            if not sol.residual <= prob.Precision:
+                fail(f"dd250k {label}: residual {sol.residual:.3e}")
+            if sess._bdd_disabled or {c[0] for c in rec.calls} != {"band_dd"}:
+                fail(f"dd250k {label}: band_dd did not serve every linear "
+                     f"solve ({rec.engines()})")
+            if not dA <= 1e-5:
+                fail(f"dd250k {label}: A is {dA:.3e} from the single-device "
+                     f"solve's")
+            if first is None:
+                first = (rec.systems[0], rec.coords[0])
+    finally:
+        profiling.ENABLED = False
+    launches = dict(kernels.LAUNCHES)
+    print(f"dd250k launches over both solves {launches}; masked "
+          f"iterations {dict(solver.MASKED)}", flush=True)
+    for name in ("band_mv", "bt_fwd", "bt_qbwd"):
+        if not (launches[name] > 0 and launches[name] % DD_PARTS == 0):
+            fail(f"dd250k launched {name} {launches[name]} times, not a "
+                 f"positive multiple of {DD_PARTS}")
+    check_dd_live(torch, "dd250k", sess)
+    del sess
+    clear_solver_caches(torch)
+    return launches, first
+
+
+def dd_system(prob, mesh):
+    """tests/test_band_dd_scaling.py's system (mu = 1000 in the steel):
+    element blocks, right-hand side, Dirichlet set, DOF coordinates and
+    its host ``spsolve`` solution."""
+    import numpy as np
+    import scipy.sparse.linalg as spla
+
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import assembly, solver
+
+    pk = magnetostatics.pack(prob, mesh)
+    geom = assembly.tri_geometry(pk.xy, pk.tris)
+    Mx, My, _ = assembly.curl_matrices(geom)
+    mu = np.where(pk.nonlinear, 1000.0, pk.mu_x)
+    Me = Mx / mu[:, None, None] + My / mu[:, None, None]
+    idx = pk.ridx[pk.tris]
+    sign = pk.rsign[pk.tris]
+    blocks = [solver.ElementBlock(idx=idx, sign=sign, mat=-Me)]
+    b = np.zeros(pk.nreduced)
+    np.add.at(b, idx.reshape(-1),
+              -(sign * (-(pk.Jre * geom.area / 3.0)[:, None]
+                        * np.ones((1, 3)))).reshape(-1))
+    coords = np.zeros((pk.nreduced, 2))
+    coords[pk.ridx] = pk.xy
+    fixed = np.asarray(pk.fixed_mask, bool)
+    At = solver.Session().csr_values(blocks, pk.nreduced, fixed)
+    x_ref = spla.spsolve(At.tocsc(),
+                         np.where(fixed, pk.fixed_vals, b))
+    return blocks, b, fixed, pk.fixed_vals, coords, x_ref
+
+
+def dd_scaling(torch) -> dict:
+    """Phase: iteration growth with the part count. The 100k system of
+    tests/test_band_dd_scaling.py, one linear solve to 1e-10 on the
+    sharded band engine at P = 2, 4, 8 and 16 on the card; CG counts
+    beside the JAX package's (PARITY.md); each solution within 1e-8 of
+    max|x| of the host spsolve, and its(16) <= 3 x its(2), the bound
+    the JAX test asserts. Returns the launches over the four solves."""
+    import numpy as np
+
+    from xfemm_tpu_torch.models import benchprob
+    from xfemm_tpu_torch.ops import kernels
+    from xfemm_tpu_torch.parallel import driver
+    from xfemm_tpu_torch.utils import profiling
+
+    clear_solver_caches(torch)
+    prob = benchprob.build(DD_SWEEP_NODES)
+    mesh = get_mesh(prob, DD_SWEEP_NODES)
+    t0 = time.time()
+    blocks, b, fixed, fv, coords, x_ref = dd_system(prob, mesh)
+    print(f"dd100k: {mesh.num_nodes} nodes, {len(b)} unknowns; system and "
+          f"host spsolve in {time.time() - t0:.1f} s", flush=True)
+    kernels.reset_launches()
+    profiling.ENABLED = True
+    its = {}
+    try:
+        for P in sorted(JAX_SWEEP_ITS):
+            profiling.reset()
+            sess = driver.DistributedSession(P)
+            t0 = time.time()
+            x, res, it = sess.solve(blocks, b, fixed, fv, 1e-10,
+                                    coords=coords)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            err = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+            its[P] = it
+            cg_s = profiling.phase_seconds("dd cg")
+            print(f"dd100k P={P}: {it} CG iterations (per pass "
+                  f"{sess.pass_iters}; JAX package {JAX_SWEEP_ITS[P]}), "
+                  f"residual {res:.3e}, max rel err vs spsolve {err:.3e}, "
+                  f"{dt:.3f} s ({1e3 * cg_s / max(it, 1):.3f} ms per CG "
+                  f"iteration); {dd_geometry(sess)}; "
+                  f"{dd_phase_seconds(profiling)}", flush=True)
+            if sess._bdd is None or sess._bdd_disabled:
+                fail(f"dd100k P={P}: the band engine did not serve")
+            if not (res <= 1e-10 and err <= 1e-8):
+                fail(f"dd100k P={P}: the solution misses the reference")
+            del sess
+    finally:
+        profiling.ENABLED = False
+    print(f"dd100k CG counts {its}; its(16) / its(2) = "
+          f"{its[16] / its[2]:.3f} (bound 3)", flush=True)
+    if not its[16] <= 3 * its[2]:
+        fail("dd100k: CG iterations grow faster than 3x from P=2 to 16")
+    clear_solver_caches(torch)
+    return dict(kernels.LAUNCHES)
+
+
+def dd_solve(torch, label, solve, attr, ref, tol):
+    """One ``devices=4`` solve of another family on the card (``solve()``
+    returns the solution): time, residual, engines, CG iterations and
+    peak memory printed; its ``attr`` within ``tol`` of max|ref|."""
+    import numpy as np
+
+    torch.cuda.reset_peak_memory_stats()
+    with DDRecorder() as rec:
+        t0 = time.time()
+        sol = solve()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    got = getattr(sol, attr)
+    d = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"{label} (devices={DD_PARTS}): {dt:.3f} s, residual "
+          f"{sol.residual:.3e}, CG iterations {sol.iterations} over "
+          f"{len(rec.calls)} linear solves, engines {rec.engines()}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"max rel diff to the reference {d:.3e} (tol {tol:g})",
+          flush=True)
+    if not (sol.residual <= sol.problem.Precision and d <= tol):
+        fail(f"{label}: the domain decomposition misses its reference")
+
+
+def dd_families(torch) -> dict:
+    """Phase: the other families with ``devices=4`` on the card:
+    heat230k cold against the K(T) loop's T (1e-5 of max|T|), elec250k
+    against its single-device V (1e-6), the AxiSolenoid, ACtest and
+    ACwound fixtures against their golden files (1e-6), and ac125k once
+    (the f64 complex halo PCG) against a host spsolve (1e-6). Returns the
+    launches per family."""
+    from xfemm_tpu_torch import models
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.mesh.meshdata import read_mesh_files
+    from xfemm_tpu_torch.models import benchprob
+    from xfemm_tpu_torch.ops import kernels
+
+    out = {}
+    clear_solver_caches(torch)
+    prob = benchprob.build_heat(HEAT_NODES)
+    mesh = get_mesh(prob, HEAT_NODES)
+    if "heat230k" not in REFERENCES:
+        REFERENCES["heat230k"] = models.solve(prob, mesh).T
+    kernels.reset_launches()
+    dd_solve(torch, "heat230k cold",
+             lambda: models.solve(prob, mesh, devices=DD_PARTS), "T",
+             REFERENCES["heat230k"], 1e-5)
+    out["dd heat230k"] = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+
+    prob = elec_problem(ELEC_AREA_SCALE)
+    mesh = get_mesh(prob, "elec250k")
+    if "elec250k" not in REFERENCES:
+        REFERENCES["elec250k"] = models.solve(prob, mesh).V
+    kernels.reset_launches()
+    dd_solve(torch, "elec250k",
+             lambda: models.solve(prob, mesh, devices=DD_PARTS), "V",
+             REFERENCES["elec250k"], 1e-6)
+    out["dd elec250k"] = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+
+    kernels.reset_launches()
+    for stem in ("AxiSolenoid", "ACtest", "ACwound"):
+        p = femfile.load(os.path.join(FIXTURES, f"{stem}.fem"))
+        fmesh = read_mesh_files(os.path.join(FIXTURES, stem))
+        t0 = time.time()
+        with DDRecorder() as rec:
+            sol = models.solve(p, fmesh, devices=DD_PARTS)
+            torch.cuda.synchronize()
+        err, lc = golden_distance(stem, fmesh, sol)
+        print(f"{stem} (devices={DD_PARTS}, {fmesh.num_nodes} nodes): "
+              f"{time.time() - t0:.3f} s, residual {sol.residual:.2e}, "
+              f"iterations {sol.iterations}, engines "
+              f"{rec.engines() or 'single device (circuit Case-2 DOFs)'}; "
+              f"vs golden {err:.3e} (tol 1e-6), label cases "
+              f"{'match' if lc else 'DIFFER'}", flush=True)
+        if not (sol.residual <= p.Precision and err <= 1e-6 and lc):
+            fail(f"{stem} with devices={DD_PARTS} misses its golden file")
+    out["dd fixtures"] = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+
+    prob = benchprob.build_ac(AC_NODES)
+    mesh = get_mesh(prob, AC_NODES)
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with DDRecorder(keep=True) as rec:
+        t0 = time.time()
+        sol = models.solve(prob, mesh, devices=DD_PARTS)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    err, sec = ac_host_reference(rec.systems[0])
+    print(f"ac125k (devices={DD_PARTS}, f64 complex halo PCG): {dt:.3f} s"
+          f"{' (past 120 s)' if dt > 120 else ''}, residual "
+          f"{sol.residual:.3e}, CG iterations {sol.iterations} "
+          f"({dt * 1e3 / max(sol.iterations, 1):.3f} ms per iteration), "
+          f"engines {rec.engines()}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; vs host "
+          f"spsolve {err:.3e} (tol 1e-6; spsolve {sec:.1f} s)", flush=True)
+    if not (sol.residual <= prob.Precision and err <= 1e-6):
+        fail("ac125k with devices=4 misses the host reference")
+    out["dd ac125k"] = dict(kernels.LAUNCHES)
+    clear_solver_caches(torch)
+    return out
+
+
+def dd_first_generation(torch, first) -> dict:
+    """Phase: the first-generation real path on the card, the engine a
+    session falls back to once the band engine latches off: a
+    ``DistributedSession(4)`` latched off the band engine solves the 250k
+    system's first linear system to 1e-10 (the f64 element-block PCG
+    with the additive-Schwarz AMG and the global coarse solve, one ring
+    halo per product; the partition bisects the DOF coordinates, so they
+    are passed, as the models do); iterations, ms per iteration and any
+    latch-off to Jacobi printed; the solution within 1e-6 of max|x| of a
+    host spsolve. Returns the launches (none: the path has no kernel)."""
+    import numpy as np
+
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.parallel import driver
+
+    system, coords = first
+    blocks, b, fixed_mask, fixed_vals = system[:4]
+    x_ref, sec = host_reference(system)
+    kernels.reset_launches()
+    for k in solver.MASKED:
+        solver.MASKED[k] = 0
+    sess = driver.DistributedSession(DD_PARTS)
+    sess._bdd_disabled = True
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    x, rel, it = sess.solve(blocks, b, fixed_mask, fixed_vals, 1e-10,
+                            coords=coords)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    err = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+    print(f"dd250k first-generation path (halo PCG, f64, Schwarz "
+          f"{'latched off to Jacobi' if not sess.schwarz else 'kept'}): "
+          f"{dt:.3f} s, {it} iterations ({1e3 * dt / max(it, 1):.3f} ms per "
+          f"iteration incl. the Schwarz build), relres {rel:.3e}, masked "
+          f"iterations {solver.MASKED['dd-halo']}; partition nmax "
+          f"{sess.ps.nmax}, hmax {sess.ps.hmax}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; vs host "
+          f"spsolve {err:.3e} (tol 1e-6; spsolve {sec:.1f} s)", flush=True)
+    if not (rel <= 1e-10 and err <= 1e-6):
+        fail("the first-generation path misses the host reference")
+    return dict(kernels.LAUNCHES)
+
+
+def a5_path(torch, prob, mesh, A_ref) -> dict:
+    """Phase: the coarse-level block-tridiagonal smoothers. The 250k
+    problem at A5_HBM, where the band hierarchy has a split coarse level
+    that is not stored triu, solved cold on the card with
+    XFEMM_TPU_COARSE_BT_SMOOTH unset and set: the levels that take a
+    factor, CG iterations, peak memory and residual printed; A within
+    1e-5 of max|A_ref| both ways; with the switch at least one level
+    takes a factor, and its live sweeps are held against the plain
+    versions (step by step at TOL, chained at BF16_CHAIN_TOL). Returns
+    the launches of the solve with the switch."""
+    import numpy as np
+    from types import SimpleNamespace
+
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import kernels
+    from xfemm_tpu_torch.utils import profiling
+
+    out = {}
+    try:
+        for switch in (None, "1"):
+            clear_solver_caches(torch)
+            if switch:
+                os.environ["XFEMM_TPU_COARSE_BT_SMOOTH"] = switch
+            kernels.reset_launches()
+            profiling.reset()
+            torch.cuda.reset_peak_memory_stats()
+            with NewtonRecorder(torch) as rec:
+                t0 = time.time()
+                sol = magnetostatics.solve(prob, mesh, hbm_bytes=A5_HBM)
+                torch.cuda.synchronize()
+                dt = time.time() - t0
+            amg = session_of("cuda").band_amg
+            levels = [(i, lv.A.ncols, lv.oob is not None,
+                       lv.dvec is not None,
+                       None if lv.bts is None
+                       else tuple(lv.bts.Sinv.shape))
+                      for i, lv in enumerate(amg.levels)]
+            dA = float(np.abs(sol.A - A_ref).max() / np.abs(A_ref).max())
+            print(f"A.5 250k at {A5_HBM:.4e} bytes, switch "
+                  f"{'set' if switch else 'unset'}: {dt:.3f} s, residual "
+                  f"{sol.residual:.3e}, CG iterations {sol.iterations}; "
+                  f"{rec.summary(profiling)}; levels (index, n, split, "
+                  f"triu, coarse factor (NB, b, b)) {levels}; peak device "
+                  f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB;"
+                  f" max|A - A_ref| / max|A_ref| {dA:.3e}", flush=True)
+            if not (sol.residual <= prob.Precision and dA <= 1e-5):
+                fail("the A.5 solve misses the single-device solution")
+            taken = [lv for lv in amg.levels if lv.bts is not None]
+            if bool(taken) != bool(switch):
+                fail(f"A.5: coarse factors {'missing' if switch else 'built'}"
+                     f" with the switch {'set' if switch else 'unset'}")
+            if switch:
+                out["250k A.5"] = dict(kernels.LAUNCHES)
+                for i, lv in enumerate(amg.levels):
+                    if lv.bts is not None:
+                        check_live_hierarchy(torch, f"A.5 L{i} coarse",
+                                             SimpleNamespace(levels=()),
+                                             lv.bts)
+            del amg
+    finally:
+        os.environ.pop("XFEMM_TPU_COARSE_BT_SMOOTH", None)
+        clear_solver_caches(torch)
+    return out
+
+
+def dd_paths(torch, mesh, A_ref) -> dict:
+    """Slice 11's paths (phase 3f), launches counted from 0 per path:
+    dd250k (the main path), the P sweep, the other families, the
+    first-generation path, and the coarse-level smoothers (A.5)."""
+    from xfemm_tpu_torch.models import benchprob
+    prob = benchprob.build(NODES)
+    launches, first = dd_250k(torch, prob, mesh, A_ref)
+    paths = {"dd250k": launches}
+    paths["dd100k sweep"] = dd_scaling(torch)
+    paths.update(dd_families(torch))
+    paths["dd250k first generation"] = dd_first_generation(torch, first)
+    paths.update(a5_path(torch, prob, mesh, A_ref))
+    return paths
+
+
 def clear_solver_caches(torch) -> None:
     from xfemm_tpu_torch.models import heatflow, magnetostatics
     from xfemm_tpu_torch.ops import solver
@@ -2822,7 +3351,9 @@ def large_path(torch, nodes: int):
               f"sym={lv.dvec is not None} sidecar="
               f"{0 if lv.oob is None else lv.oob.rows.numel()} "
               f"P={None if lv.P is None else tuple(lv.P.dense.shape)} "
-              f"Abf={lv.Abf is not None}", flush=True)
+              f"Abf={lv.Abf is not None} coarse factor="
+              f"{None if lv.bts is None else tuple(lv.bts.Sinv.shape)}",
+              flush=True)
     print(f"  bottom: "
           + (f"dense inverse {tuple(amg.coarse_inv.shape)}"
              if amg.coarse_inv is not None else "block-tridiagonal"),
@@ -3196,6 +3727,7 @@ def main() -> None:
     ap.add_argument("--kernels-only", action="store_true")
     ap.add_argument("--large-only", action="store_true")
     ap.add_argument("--heat-elec-only", action="store_true")
+    ap.add_argument("--dd-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -3222,6 +3754,18 @@ def main() -> None:
         heat_elec_paths(torch)
         print("--heat-elec-only: no result line", flush=True)
         return
+    if args.dd_only:
+        from xfemm_tpu_torch.models import benchprob, magnetostatics
+        prob = benchprob.build(NODES)
+        mesh = get_mesh(prob, NODES)
+        t0 = time.time()
+        A_ref = magnetostatics.solve(prob, mesh).A
+        print(f"250k single-device reference solve {time.time() - t0:.3f} s",
+              flush=True)
+        clear_solver_caches(torch)
+        dd_paths(torch, mesh, A_ref)
+        print("--dd-only: no result line", flush=True)
+        return
     kernel_phase(torch, SEED)
     if args.kernels_only:
         print("--kernels-only: stopping after the kernel checks", flush=True)
@@ -3240,6 +3784,7 @@ def main() -> None:
                      f"launched {name}")
         paths.update(ac_axi_paths(torch))
         paths.update(heat_elec_paths(torch))
+        paths.update(dd_paths(torch, mesh, sol_default.A))
         del mesh, sol_default
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
     paths["4.47M"] = large_launches

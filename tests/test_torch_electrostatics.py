@@ -129,13 +129,34 @@ def test_total_charge_conductor_matches_jax(fixtures, engines):
     assert np.allclose(sol.conductor_q, jsol.conductor_q, rtol=1e-6)
 
 
-@pytest.mark.parametrize("kw", [dict(devices=2), dict(device_mesh=object())])
-def test_domain_decomposition_raises(fixtures, kw):
-    """``devices=`` / ``device_mesh=`` name the missing port (A.6), also
-    through the dispatch."""
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(device_mesh=object()), TypeError, "device_mesh"),
+    (dict(devices=2, device_mesh=["cpu", "meta"]), NotImplementedError,
+     "C.17")], ids=["kw0", "kw1"])
+def test_domain_decomposition_raises(fixtures, kw, exc, match):
+    """A ``device_mesh`` that is not a device (or a list of them) names
+    the parameter; one that names several distinct devices names the
+    missing multi-card communicator (ROADMAP C.17), also through the
+    dispatch."""
     p, mesh = elec_test(fixtures, "t")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(exc, match=match):
         tmodels.solve(p, mesh, **kw, **ON_CPU)
+
+
+@pytest.mark.parametrize("devices", [2, 8])
+def test_domain_decomposition_matches_jax_and_golden(fixtures, engines,
+                                                     devices):
+    """ElecTest with ``devices=N`` through the dispatch (the capacitor's
+    r-weighted operator, on which the Schwarz V-cycle may latch off to
+    Jacobi in both packages): the golden .res and its conductor results,
+    and the JAX package's ``devices=N`` V (1e-6)."""
+    p, mesh = elec_test(fixtures, "t")
+    sol = tmodels.solve(p, mesh, devices=devices, **ON_CPU)
+    jsol = jelec.solve(*elec_test(fixtures, "j"), devices=devices)
+    assert sol.residual <= p.Precision
+    check_golden(fixtures, mesh, sol)
+    assert np.abs(sol.V - jsol.V).max() <= 1e-6 * np.abs(jsol.V).max()
+    assert np.allclose(sol.conductor_q, jsol.conductor_q, rtol=1e-6)
 
 
 def test_ei_verbs_round_trip_matches_jax(fixtures, engines):

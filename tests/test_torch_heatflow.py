@@ -548,12 +548,34 @@ def test_small_build_heat_solve_matches_jax(band_engines):
     assert np.abs(sol.T - jsol.T).max() <= 1e-6 * np.abs(jsol.T).max()
 
 
-@pytest.mark.parametrize("kw", [dict(devices=2), dict(device_mesh=object())])
-def test_domain_decomposition_raises(fixtures, kw):
-    """``devices=`` / ``device_mesh=`` name the missing port (A.6)."""
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(device_mesh=object()), TypeError, "device_mesh"),
+    (dict(devices=2, device_mesh=["cpu", "meta"]), NotImplementedError,
+     "C.17")], ids=["kw0", "kw1"])
+def test_domain_decomposition_raises(fixtures, kw, exc, match):
+    """A ``device_mesh`` that is not a device (or a list of them) names
+    the parameter; one that names several distinct devices names the
+    missing multi-card communicator (ROADMAP C.17)."""
     p, mesh = heat_temp0(fixtures, "t")
-    with pytest.raises(NotImplementedError, match="A.6"):
+    with pytest.raises(exc, match=match):
         theat.solve(p, mesh, **kw, **ON_CPU)
+
+
+@pytest.mark.parametrize("devices", [2, 8])
+def test_domain_decomposition_matches_jax_and_golden(fixtures, port_band,
+                                                     devices):
+    """HeatTemp0 with ``devices=N``: every linear solve of the
+    substitution chain as a domain decomposition (the K(T) loop not
+    taken), against the JAX package's ``devices=N`` T and the golden
+    solution at 1e-6 of max|T|."""
+    calls = count_calls(port_band, tnewton, "run_heat")
+    p, mesh = heat_temp0(fixtures, "t")
+    sol = theat.solve(p, mesh, devices=devices, **ON_CPU)
+    jsol = jheat.solve(*heat_temp0(fixtures, "j"), devices=devices)
+    assert not calls
+    assert sol.residual <= p.Precision
+    assert np.abs(sol.T - jsol.T).max() <= 1e-6 * np.abs(jsol.T).max()
+    assert golden_distance(fixtures, mesh, sol.T) < 1e-6
 
 
 def test_hi_verbs_round_trip_matches_jax(fixtures, band_engines):

@@ -120,3 +120,23 @@ print(sorted(m for m in sys.modules
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT).stdout.strip()
     assert out == "[]", out
+
+
+def test_parallel_modules_stand_alone():
+    """The domain decomposition (``xfemm_tpu_torch.parallel``: partition,
+    comm, halo, schwarz, band_dd, driver) imports without jax or the JAX
+    package, and the models reach it."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(ROOT)!r})
+from xfemm_tpu_torch.parallel import (band_dd, comm, driver, halo,
+                                      partition, schwarz)
+from xfemm_tpu_torch.models import magnetostatics
+assert magnetostatics.dd_driver is driver
+assert callable(driver.DistributedSession) and callable(comm.ring_shift)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "xfemm_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]", out

@@ -15,8 +15,11 @@ cfemm/fmesher/main.cpp:38-57):
 another device (``--device cpu`` runs the kernels' plain PyTorch
 versions and needs ``--hbm-bytes``, the memory the band planner plans
 against); without a card and without ``--device cpu`` they fail.
-The JAX package's ``--devices N`` (domain decomposition) is not ported
-yet (ROADMAP A.6).
+``solve --devices N`` runs the linear solves as a domain decomposition
+over N parts (``parallel/driver.py``), all N on that one device; AC
+problems with circuit Case-2 DOFs keep the single-device path:
+
+    python -m xfemm_tpu_torch solve problem.fem --devices 4
 """
 
 from __future__ import annotations
@@ -65,8 +68,11 @@ def cmd_solve(args) -> int:
         mesh = _mesh(problem, base, write=False)
     print(f"solving {mesh.num_nodes} nodes ...")
     t0 = time.time()
+    kw = {}
+    if args.devices:
+        kw["devices"] = args.devices
     sol = models.solve(problem, mesh, device=args.device,
-                       hbm_bytes=args.hbm_bytes)
+                       hbm_bytes=args.hbm_bytes, **kw)
     elapsed = time.time() - t0
 
     if problem.filetype == FileType.MAGNETICS:
@@ -134,6 +140,9 @@ def main(argv=None) -> int:
     mp.set_defaults(fn=cmd_mesh)
     spp = sub.add_parser("solve", help="mesh (or load mesh) and solve")
     spp.add_argument("file")
+    spp.add_argument("--devices", type=int, default=None,
+                     help="run the linear solves as a domain "
+                          "decomposition over N parts on the one device")
     _device_args(spp)
     spp.add_argument("--premeshed", action="store_true",
                      help="read existing .node/.ele/.edge/.pbc files")

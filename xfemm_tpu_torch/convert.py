@@ -1,4 +1,5 @@
-"""Carry the JAX package's band-engine state into the port.
+"""Carry the JAX package's band-engine and domain-decomposition state
+into the port.
 
 Each function takes the JAX package's object (or any object with the
 same fields) whose arrays convert with ``np.asarray``, and returns the
@@ -13,8 +14,10 @@ import numpy as np
 import torch
 
 from .ops.band import BandAMG, BandLevel, BandMatrix, FineLayout, Sidecar
-from .ops.blocktri import BTCoarse, BTFactor
+from .ops.blocktri import BTCoarse, BTDeviceMaps, BTFactor
 from .ops.newton import DeviceHeat
+from .parallel.band_dd import BandDDState
+from .parallel.partition import PartitionedSystem
 
 
 def tensor(a, device="cpu") -> torch.Tensor:
@@ -39,20 +42,22 @@ def fine_layout(lay) -> FineLayout:
                         for f in lay])
 
 
+def _opt(f, obj, device):
+    return None if obj is None else f(obj, device)
+
+
 def band_level(lv, device="cpu") -> BandLevel:
-    """The fine BandLevel: its band and inverse diagonal."""
+    """A BandLevel's band and inverse diagonal, and its coarse
+    block-tridiagonal smoother ``bts`` where it has one."""
     return BandLevel(A=band_matrix(lv.A, device),
-                     invd=tensor(lv.invd, device).float())
+                     invd=tensor(lv.invd, device).float(),
+                     bts=_opt(bt_factor, getattr(lv, "bts", None), device))
 
 
 def bt_factor(f, device="cpu") -> BTFactor:
     """BTFactor (Sinv, G, s)."""
     return BTFactor(Sinv=tensor(f.Sinv, device), G=tensor(f.G, device),
                     s=tensor(f.s, device).float())
-
-
-def _opt(f, obj, device):
-    return None if obj is None else f(obj, device)
 
 
 def sidecar(sc, device="cpu") -> Sidecar:
@@ -118,3 +123,45 @@ def device_heat(dh, device="cpu") -> DeviceHeat:
 
     return DeviceHeat(**{name: field(getattr(dh, name))
                          for name in DeviceHeat._fields})
+
+
+def partitioned_system(ps) -> PartitionedSystem:
+    """A JAX ``PartitionedSystem`` (host numpy on both sides) as the
+    port's, every array copied."""
+    return PartitionedSystem(
+        ndev=int(ps.ndev), nmax=int(ps.nmax), hmax=int(ps.hmax),
+        nreduced=int(ps.nreduced), counts=np.array(ps.counts),
+        blocks=[tuple(np.array(a) for a in blk) for blk in ps.blocks],
+        fixed_mask=np.array(ps.fixed_mask),
+        fixed_vals=np.array(ps.fixed_vals), valid=np.array(ps.valid),
+        dof_dev=np.array(ps.dof_dev), dof_slot=np.array(ps.dof_slot))
+
+
+def bt_device_maps(maps, device="cpu") -> BTDeviceMaps:
+    """BTDeviceMaps (index maps as int64, ``is_L`` as bool)."""
+    return BTDeviceMaps(**{
+        name: (tensor(getattr(maps, name), device).bool() if name == "is_L"
+               else tensor(getattr(maps, name), device).long())
+        for name in BTDeviceMaps._fields})
+
+
+def band_dd_state(st, device="cpu") -> BandDDState:
+    """A JAX ``BandDDState`` (the sharded band engine's structure) as the
+    port's: host maps copied, index maps as int64 tensors on ``device``,
+    the per-part factor maps converted, the permuted pattern shared."""
+    def idx(a):
+        return tensor(a, device).long()
+
+    return BandDDState(
+        ndev=int(st.ndev), n=int(st.n), nloc=int(st.nloc),
+        perm=np.array(st.perm), iperm=np.array(st.iperm),
+        part_of=np.array(st.part_of), loc_of=np.array(st.loc_of),
+        shift0=int(st.shift0), W=int(st.W), NT=int(st.NT),
+        fill_pos=idx(st.fill_pos), fill_sel=idx(st.fill_sel),
+        pad_pos=idx(st.pad_pos), oob_rows=idx(st.oob_rows),
+        oob_cols=idx(st.oob_cols), oob_sel=idx(st.oob_sel),
+        oob_w=tensor(st.oob_w, device).float(), b=int(st.b),
+        NB=int(st.NB),
+        bt_maps=[bt_device_maps(m, device) for m in st.bt_maps],
+        bt_lsel=[np.array(a) for a in st.bt_lsel], data_map=st.data_map,
+        Ap_pattern=st.Ap_pattern)

@@ -34,6 +34,7 @@ from ..constants import C_APOT, MU0, PI, ProblemType
 from ..geometry.problem import Problem
 from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
+from ..parallel import driver as dd_driver
 from ..utils import profiling
 from .magnetostatics import (MagSolution, PackedMagnetostatic, _device_chain,
                              _element_blocks, _rhs, pack)
@@ -83,13 +84,17 @@ def _circuit_source(pk: PackedMagnetostatic, R):
 
 
 def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
-          device=None, hbm_bytes: float | None = None) -> MagSolution:
+          devices: int | None = None, device_mesh=None, device=None,
+          hbm_bytes: float | None = None) -> MagSolution:
     """Axisymmetric nonlinear magnetostatic solve. ``device`` and
     ``hbm_bytes`` as for ``magnetostatics.solve``: CUDA when omitted,
     ``"cpu"`` runs the kernels' plain versions with an explicit
-    ``hbm_bytes`` for the band planner."""
+    ``hbm_bytes`` for the band planner. ``devices`` / ``device_mesh``
+    as for ``magnetostatics.solve``: every linear solve as a domain
+    decomposition, the Newton chain on the host."""
     assert problem.ProblemType == ProblemType.AXISYMMETRIC
     dev = solver.resolve_device(device)
+    dsess = dd_driver.session(devices, device_mesh, dev)
     with profiling.phase("pack"):
         pk = pack(problem, mesh)
     c = C_APOT
@@ -166,7 +171,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     dev_runs = 0
     it_shift = 0       # extra global iterations from device runs
     dev_handoff = False
-    use_device = nonlinear and not os.environ.get(
+    use_device = nonlinear and dsess is None and not os.environ.get(
         "XFEMM_TPU_NO_DEVICE_NEWTON")
 
     for it in range(max_newton if nonlinear else 1):
@@ -262,11 +267,17 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             tol_it = max(problem.Precision, min(1e-4, 0.03 * res))
 
         V_old = V
-        V, rel_resid, cg_iters = solver.solve(
-            blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
-            x0=V if it > 0 else None, coords=dof_coords, session=sess,
-            changed=[nl] if nonlinear else None, device=dev,
-            hbm=hbm_bytes)
+        if dsess is not None:
+            with profiling.phase("distributed solve"):
+                V, rel_resid, cg_iters = dsess.solve(
+                    blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
+                    x0=V if it > 0 else None, coords=dof_coords)
+        else:
+            V, rel_resid, cg_iters = solver.solve(
+                blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
+                x0=V if it > 0 else None, coords=dof_coords, session=sess,
+                changed=[nl] if nonlinear else None, device=dev,
+                hbm=hbm_bytes)
         V = np.asarray(V)
         iters_total += int(cg_iters)
 

@@ -24,8 +24,9 @@ from ..geometry.problem import Problem
 from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
+from ..parallel import driver as dd_driver
 from .heatflow import compute_node_Q, conductor_prolongation, \
-    decode_markers, no_domain_decomposition
+    decode_markers
 
 EPS0 = 8.85418781762e-12
 #: length-unit -> mm (esolver.cpp:65)
@@ -50,12 +51,13 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
           hbm_bytes: float | None = None) -> ElecSolution:
     """Electrostatic solve: one linear ``solver.solve`` on ``device``
     (CUDA when omitted; ``"cpu"`` runs the kernels' plain versions and
-    needs ``hbm_bytes``). ``devices`` / ``device_mesh`` raise
-    ``NotImplementedError`` (ROADMAP A.6)."""
+    needs ``hbm_bytes``). ``devices=N`` solves it as a domain
+    decomposition over N parts (``parallel/driver.py``) on that device or
+    the one device of ``device_mesh``."""
     from ..mesh.meshdata import resolve_default_labels
-    no_domain_decomposition(devices, device_mesh)
-    resolve_default_labels(problem, mesh)
     dev = solver.resolve_device(device)
+    dsess = dd_driver.session(devices, device_mesh, dev)
+    resolve_default_labels(problem, mesh)
     units = LENGTH_TO_MM[int(problem.LengthUnits)]
     xy = mesh.nodes * units
     tris = mesh.elements
@@ -178,9 +180,15 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
     dof_coords = np.zeros((nred, 2))
     dof_coords[ridx] = xy
 
-    V, rel_resid, cg_iters = solver.solve(
-        blocks, b, fixed_mask, fixed_vals, problem.Precision,
-        coords=dof_coords, device=dev, hbm=hbm_bytes)
+    if dsess is not None:
+        # the domain decomposition (parallel/driver.py), same contract
+        V, rel_resid, cg_iters = dsess.solve(
+            blocks, b, fixed_mask, fixed_vals, problem.Precision,
+            coords=dof_coords)
+    else:
+        V, rel_resid, cg_iters = solver.solve(
+            blocks, b, fixed_mask, fixed_vals, problem.Precision,
+            coords=dof_coords, device=dev, hbm=hbm_bytes)
     V = np.asarray(V)
     Vn = V[ridx] * rsign
 

@@ -33,6 +33,7 @@ from ..geometry.problem import Problem
 from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
+from ..parallel import driver as dd_driver
 from ..utils import profiling
 from .magnetostatics import MagSolution, pack
 
@@ -356,14 +357,19 @@ def _displacement(V, V_old, nred: int):
 
 
 def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
-          Aprev=None, device=None, hbm_bytes: float | None = None
-          ) -> MagSolution:
+          Aprev=None, devices: int | None = None, device_mesh=None,
+          device=None, hbm_bytes: float | None = None) -> MagSolution:
     """Planar AC solve. ``device`` and ``hbm_bytes`` as for
     ``magnetostatics.solve`` (CUDA when omitted; ``"cpu"`` with an
     explicit ``hbm_bytes`` runs the kernels' plain versions).
     ``Aprev`` (or the problem's ``PrevSoln``) makes the B-H elements
     linear with the incremental or frozen complex permeability about
-    the previous solution's field."""
+    the previous solution's field. ``devices=N`` runs the
+    complex-symmetric solves as a domain decomposition over N parts
+    (``parallel/driver.py``, (re, im) pairs with one halo exchange per
+    product) on that device or the one device of ``device_mesh``, unless
+    the problem has circuit Case-2 DOFs, whose bordered rows couple every
+    part: those keep the single-device path, as in the JAX package."""
     assert problem.ProblemType == ProblemType.PLANAR, \
         "harmonic axisymmetric in models/harmonicaxi.py"
     assert problem.Frequency != 0
@@ -457,6 +463,14 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                                           mat=age_m.astype(complex)))
     static_blocks.extend(c2_blocks)
 
+    # devices=N: distributed complex-symmetric solves (Jacobi on (re, im)
+    # pairs); circuit Case-2 bordered rows keep the single-device path,
+    # as in the JAX package
+    dsess = dd_driver.session(None if ac.case2_ids else devices,
+                              device_mesh, device, schwarz=False)
+    dof_coords_c = np.zeros((ntot, 2))
+    dof_coords_c[pk.ridx] = pk.xy
+
     V = np.zeros(ntot, complex)
     relax = 1.0
     res = 0.0
@@ -485,9 +499,15 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             b = _rhs_c(pk, be, b_extra, ntot)
 
         V_old = V
-        V, rel_resid, cg_iters = solver.solve_complex(
-            blocks, b, fixed_mask, fixed_vals, problem.Precision,
-            x0=V if it > 0 else None, device=device, hbm=hbm_bytes)
+        if dsess is not None:
+            with profiling.phase("distributed solve"):
+                V, rel_resid, cg_iters = dsess.solve_complex(
+                    blocks, b, fixed_mask, fixed_vals, problem.Precision,
+                    x0=V if it > 0 else None, coords=dof_coords_c)
+        else:
+            V, rel_resid, cg_iters = solver.solve_complex(
+                blocks, b, fixed_mask, fixed_vals, problem.Precision,
+                x0=V if it > 0 else None, device=device, hbm=hbm_bytes)
         V = np.asarray(V)
         iters_total += int(cg_iters)
 

@@ -27,6 +27,7 @@ from ..geometry.problem import Problem
 from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
+from ..parallel import driver as dd_driver
 from ..utils import profiling
 from .harmonic import (ACSetup, _c2_blocks, _circuit_source, _displacement,
                        _edge_blocks, _label_case, _nonlinear_mu, _rhs_c)
@@ -34,9 +35,10 @@ from .magnetostatics import MagSolution, pack
 
 
 def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
-          device=None, hbm_bytes: float | None = None) -> MagSolution:
-    """Axisymmetric AC solve; ``device`` and ``hbm_bytes`` as for
-    ``harmonic.solve``."""
+          devices: int | None = None, device_mesh=None, device=None,
+          hbm_bytes: float | None = None) -> MagSolution:
+    """Axisymmetric AC solve; ``devices``, ``device_mesh``, ``device``
+    and ``hbm_bytes`` as for ``harmonic.solve``."""
     assert problem.ProblemType == ProblemType.AXISYMMETRIC
     assert problem.Frequency != 0
     with profiling.phase("pack"):
@@ -103,6 +105,14 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     bh = {int(i): mats[i].knot_arrays_complex()
           for i in np.unique(pk.blk) if mats[i].BHpoints > 0}
 
+    # devices=N: distributed complex-symmetric solves (Jacobi on (re, im)
+    # pairs); circuit Case-2 bordered rows keep the single-device path,
+    # as in the JAX package
+    dsess = dd_driver.session(None if ac.case2_ids else devices,
+                              device_mesh, device, schwarz=False)
+    dof_coords_c = np.zeros((ntot, 2))
+    dof_coords_c[pk.ridx] = pk.xy
+
     V = np.zeros(ntot, complex)
     relax = 1.0
     res = 0.0
@@ -129,9 +139,15 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             b = _rhs_c(pk, be, b_extra, ntot)
 
         V_old = V
-        V, rel_resid, cg_iters = solver.solve_complex(
-            blocks, b, fixed_mask, fixed_vals, problem.Precision,
-            x0=V if it > 0 else None, device=device, hbm=hbm_bytes)
+        if dsess is not None:
+            with profiling.phase("distributed solve"):
+                V, rel_resid, cg_iters = dsess.solve_complex(
+                    blocks, b, fixed_mask, fixed_vals, problem.Precision,
+                    x0=V if it > 0 else None, coords=dof_coords_c)
+        else:
+            V, rel_resid, cg_iters = solver.solve_complex(
+                blocks, b, fixed_mask, fixed_vals, problem.Precision,
+                x0=V if it > 0 else None, device=device, hbm=hbm_bytes)
         V = np.asarray(V)
         iters_total += int(cg_iters)
 

@@ -33,6 +33,7 @@ from ..geometry.problem import Problem
 from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
+from ..parallel import driver as dd_driver
 from ..utils import profiling
 from .magnetostatics import build_prolongation
 
@@ -50,15 +51,6 @@ class HeatSolution:
     conductor_q: np.ndarray       # (C,) solved conductor total flux
     iterations: int = 0
     residual: float = 0.0
-
-
-def no_domain_decomposition(devices, device_mesh) -> None:
-    """``devices=`` / ``device_mesh=`` select the JAX package's
-    multi-device domain decomposition, which the port does not have."""
-    if devices is not None or device_mesh is not None:
-        raise NotImplementedError(
-            "devices= / device_mesh= (domain decomposition) is not ported "
-            "to xfemm_tpu_torch yet (ROADMAP A.6)")
 
 
 def decode_markers(mesh: MeshData):
@@ -432,13 +424,15 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     on the host and needs ``hbm_bytes``, the device memory the band
     planner plans against. ``Tprev`` (or the file named by the problem's
     ``PrevSoln``) is the previous time step's nodal T of a transient
-    (``dT`` != 0) step. ``devices`` / ``device_mesh`` raise
-    ``NotImplementedError`` (ROADMAP A.6)."""
+    (``dT`` != 0) step. ``devices=N`` runs every linear solve as a
+    domain decomposition over N parts (``parallel/driver.py``) on the
+    solve's device or the one device of ``device_mesh``; the K(T) loop
+    is then not taken, as in the JAX package."""
     from ..mesh.meshdata import resolve_default_labels
     from .magnetostatics import _problem_fingerprint
-    no_domain_decomposition(devices, device_mesh)
     resolve_default_labels(problem, mesh)
     dev = solver.resolve_device(device)
+    dsess = dd_driver.session(devices, device_mesh, dev)
     if Tprev is None and problem.PrevSoln:
         Tprev = load_previous(problem, mesh)
     units = LENGTH_TO_METERS[problem.LengthUnits]
@@ -480,8 +474,8 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     iters_total = 0
     rel_resid = 0.0
     res = 0.0
-    dev_heat = su.dev_heat[1] \
-        if su.dev_heat is not None and su.dev_heat[0] == tp_key else None
+    dev_heat = su.dev_heat[1] if (dsess is None and su.dev_heat is not None
+                                  and su.dev_heat[0] == tp_key) else None
     dev_runs = 0
 
     for it in range(max_iter if nonlinear else 1):
@@ -518,10 +512,16 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
                                if su.has_rad else None)
 
         V_old = V
-        V, rel_resid, cg_iters = solver.solve(
-            blocks, b, su.fixed_mask, su.fixed_vals, tol_it,
-            x0=V if it > 0 else None, coords=su.dof_coords, session=sess,
-            changed=changed, device=dev, hbm=hbm_bytes)
+        if dsess is not None:
+            with profiling.phase("distributed solve"):
+                V, rel_resid, cg_iters = dsess.solve(
+                    blocks, b, su.fixed_mask, su.fixed_vals, tol_it,
+                    x0=V if it > 0 else None, coords=su.dof_coords)
+        else:
+            V, rel_resid, cg_iters = solver.solve(
+                blocks, b, su.fixed_mask, su.fixed_vals, tol_it,
+                x0=V if it > 0 else None, coords=su.dof_coords,
+                session=sess, changed=changed, device=dev, hbm=hbm_bytes)
         V = np.asarray(V)
         iters_total += int(cg_iters)
         Vo = V[ridx] * rsign
@@ -541,6 +541,7 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         # after the it-0 solve has built the band hierarchy and value
         # maps, intermediate substitution iterations can run on device
         if (it == 0 and dev_heat is None and not su.has_rad
+                and dsess is None
                 and not os.environ.get("XFEMM_TPU_NO_DEVICE_NEWTON")):
             dev_heat = _setup_device_heat(problem, su, blocks, b, dev,
                                           hbm_bytes)

@@ -43,6 +43,7 @@ from ..materials.magnetic import MagneticMaterial
 from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
+from ..parallel import driver as dd_driver
 from ..utils.luaexpr import eval_magdir
 
 
@@ -782,8 +783,8 @@ def _problem_fingerprint(problem: Problem):
 
 
 def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
-          Aprev: np.ndarray | None = None,
-          x0_A: np.ndarray | None = None, device=None,
+          Aprev: np.ndarray | None = None, devices: int | None = None,
+          device_mesh=None, x0_A: np.ndarray | None = None, device=None,
           hbm_bytes: float | None = None) -> MagSolution:
     """Planar nonlinear magnetostatic solve (Static2D semantics).
 
@@ -797,6 +798,11 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     problem's ``PrevSoln``) is a previous solution's nodal A: the B-H
     elements then take the incremental (``PrevType`` 1) or frozen (2)
     permeability about its field, and the solve is linear.
+    ``devices=N`` runs every linear solve of the Newton loop as a domain
+    decomposition over N parts (``parallel/driver.py``: the sharded band
+    engine, or the element-block Schwarz PCG), all N parts on the solve's
+    device or on the one device of ``device_mesh``; the Newton chain then
+    stays on the host, as in the JAX package.
     """
     assert problem.ProblemType == ProblemType.PLANAR, \
         "axisymmetric problems solve through models/axisymmetric.py"
@@ -804,6 +810,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     if Aprev is None and problem.PrevSoln:
         Aprev = load_previous(problem, mesh)
     dev = solver.resolve_device(device)
+    dsess = dd_driver.session(devices, device_mesh, dev)
     c = C_APOT
     # pack/geometry cache: keyed on object identity (the cache holds
     # strong refs, so ids stay valid) + property-content fingerprint
@@ -910,7 +917,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     rel_resid = 0.0
 
     newton_debug = bool(os.environ.get("XFEMM_TPU_NEWTON_DEBUG"))
-    use_device = nonlinear and not os.environ.get(
+    use_device = nonlinear and dsess is None and not os.environ.get(
         "XFEMM_TPU_NO_DEVICE_NEWTON")
     _dkey = ("dn", str(dev))
     Me = None          # element matrices, built on the first host pass
@@ -1095,11 +1102,17 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 np.add.at(b, flat_i, -flat_s * dbe.reshape(-1))
 
         V_old = V
-        V, rel_resid, cg_iters = solver.solve(
-            blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
-            x0=V if (it > 0 or warm) else None, coords=dof_coords,
-            session=sess, changed=[nl] if nonlinear else None,
-            device=dev, hbm=hbm_bytes)
+        if dsess is not None:
+            with profiling.phase("distributed solve"):
+                V, rel_resid, cg_iters = dsess.solve(
+                    blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
+                    x0=V if (it > 0 or warm) else None, coords=dof_coords)
+        else:
+            V, rel_resid, cg_iters = solver.solve(
+                blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
+                x0=V if (it > 0 or warm) else None, coords=dof_coords,
+                session=sess, changed=[nl] if nonlinear else None,
+                device=dev, hbm=hbm_bytes)
         V = np.asarray(V)
         iters_total += int(cg_iters)
 

@@ -222,37 +222,54 @@ def csr_to_ell_rect(P: sp.csr_matrix, dtype=np.float32) -> EllMatrix:
 # device-side application                                                #
 # ---------------------------------------------------------------------- #
 
+def _take(x, cols):
+    """x[cols]; with a leading part axis (x (P, n), cols (P, m, D)) each
+    part gathers from its own slice."""
+    if x.dim() == 1:
+        return x[cols]
+    return torch.gather(x, 1, cols.reshape(x.shape[0], -1)).view(cols.shape)
+
+
 def ell_matvec(vals, cols, x):
-    return (vals * x[cols]).sum(dim=1)
+    return (vals * _take(x, cols)).sum(dim=-1)
 
 
 def p_apply(lv: DeviceLevel, xc):
     """z = P xc (fine <- coarse): ELLPACK gather over fine rows."""
-    return (lv.p_vals * xc[lv.p_cols]).sum(dim=1)
+    return (lv.p_vals * _take(xc, lv.p_cols)).sum(dim=-1)
 
 
 def pt_apply(lv: DeviceLevel, r, nc: int):
     """rc = P^T r (coarse <- fine): scatter-add of P's entries (atomic on
     the card, so its sums vary by rounding from run to run)."""
-    contrib = lv.p_vals * r[:, None]
-    return torch.zeros(nc, dtype=r.dtype, device=r.device).index_add_(
-        0, lv.p_cols.reshape(-1), contrib.reshape(-1))
+    contrib = lv.p_vals * r[..., None]
+    if r.dim() == 1:
+        return torch.zeros(nc, dtype=r.dtype, device=r.device).index_add_(
+            0, lv.p_cols.reshape(-1), contrib.reshape(-1))
+    P = r.shape[0]
+    return torch.zeros((P, nc), dtype=r.dtype, device=r.device).scatter_add_(
+        1, lv.p_cols.reshape(P, -1), contrib.reshape(P, -1))
 
 
 def vcycle(amg: DeviceAMG, r):
     """Symmetric V(1,1) cycle over the level list; with no levels (a
     problem at or below COARSE_MAX unknowns) it is the bottom product
-    alone. Coarse sizes come from the next level's shapes."""
+    alone. Coarse sizes come from the next level's shapes. A hierarchy
+    whose tensors carry a leading part axis (``parallel.schwarz``: one
+    hierarchy per part, ``omega`` of shape (P, 1)) cycles every part at
+    once on an (P, n) residual."""
     from .kernels import fp32_matmul
     L = len(amg.levels)
 
     def cycle(l, r):
         if l == L:
             with fp32_matmul():
-                return amg.coarse_inv @ r
+                if r.dim() == 1:
+                    return amg.coarse_inv @ r
+                return (amg.coarse_inv @ r[..., None])[..., 0]
         lv = amg.levels[l]
-        nc = (amg.levels[l + 1].ell_vals.shape[0] if l + 1 < L
-              else amg.coarse_inv.shape[0])
+        nc = (amg.levels[l + 1].ell_vals.shape[-2] if l + 1 < L
+              else amg.coarse_inv.shape[-1])
         z = lv.omega * lv.invd * r
         d = r - ell_matvec(lv.ell_vals, lv.ell_cols, z)
         zc = cycle(l + 1, pt_apply(lv, d, nc))

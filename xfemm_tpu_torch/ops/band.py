@@ -330,8 +330,11 @@ class BandLevel:
     upper triangle when ``dvec`` holds the diagonal), ``oob`` its
     sidecar; ``P`` the smoothed prolongator band (bf16, None: aggregation
     transfers) with its sidecar ``P_oob``; ``Abf`` a bf16 copy of ``A``
-    for the smoothing residuals; ``cperm``/``ciperm`` bridge to the next
-    level when that level lives in its own ordering."""
+    for the smoothing residuals; ``bts`` a bf16 block-tridiagonal factor
+    of a split coarse level's kept band, its smoother in place of damped
+    Jacobi (``setup_band_amg(coarse_bt_smooth=True)``); ``cperm``/
+    ``ciperm`` bridge to the next level when that level lives in its own
+    ordering."""
 
     A: BandMatrix
     invd: torch.Tensor                      # (n,) f32 inverse diagonal
@@ -341,6 +344,7 @@ class BandLevel:
     dvec: "torch.Tensor | None" = None      # diagonal of a triu level
     oob: "Sidecar | None" = None
     P_oob: "Sidecar | None" = None
+    bts: "object | None" = None             # bf16 BTFactor of the kept band
     cperm: "torch.Tensor | None" = None
     ciperm: "torch.Tensor | None" = None
 
@@ -439,7 +443,8 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
                    plan_only: bool = False,
                    fine_full: bool = False,
                    band_key: "np.ndarray | None" = None,
-                   fine_abf: bool = True, device="cpu"):
+                   fine_abf: bool = True, coarse_bt_smooth: bool = False,
+                   device="cpu"):
     """Build the band hierarchy (host f32 Galerkin products -> device
     bands), the JAX package's ``band.setup_band_amg``. ``At`` is already
     band-ordered with Dirichlet identity rows. Returns (BandAMG,
@@ -460,11 +465,12 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
     rest discarded). ``fine_full`` keeps the fine level's complete band
     (no split). ``fine_abf=False`` skips the fine level's bf16 copy (the
     caller smooths it with a block-tridiagonal factor).
-    ``plan_only=True`` does no device work and returns (report, None):
-    per-level dicts plus a totals entry. The dense coarse-level
-    block-tridiagonal smoothers of the JAX package (its
-    ``coarse_bt_smooth``, off unless an environment switch is set) are
-    not carried."""
+    ``coarse_bt_smooth`` gives every split coarse level that is not
+    stored triu a bf16 block-tridiagonal factor of its kept band (the
+    sidecar stays outside), its smoother in ``band_vcycle``, where the
+    factor's bytes fit 1.6 GB and the budget. ``plan_only=True`` does no
+    device work and returns (report, None): per-level dicts plus a
+    totals entry."""
     from ..utils import profiling
     from . import blocktri as bt_mod
     from .amg import scaled_inv
@@ -746,6 +752,22 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
                 "sidecar": 0 if oob_src is None else int(oob_src.size)})
         else:
             Adev = fill_band_device(layA, Adata, R_l, A_dtype, device)
+            bts = None
+            if (coarse_bt_smooth and not first and not use_sym
+                    and oob_src is not None):
+                bs_c = bt_mod.pick_block(int(cut_l))
+                fb_c = (0 if bs_c is None
+                        else bt_mod.factor_bytes(n, bs_c, 2))
+                if (bs_c is not None and 0 < fb_c <= 1.6e9
+                        and (budget_bytes is None
+                             or used + fb_c <= budget_bytes)):
+                    with profiling.phase("bt coarse smoother"):
+                        lay_c2 = bt_mod.pack_layout(pack_target, bs_c)
+                        bts = bt_mod.build_factor(
+                            bt_mod.device_maps(lay_c2, device),
+                            pack_target.data, b=bs_c, NB=lay_c2.NB,
+                            store_dtype=torch.bfloat16)
+                    used += fb_c
             levels.append(BandLevel(
                 A=Adev,
                 invd=torch.as_tensor(invd, dtype=dtype, device=device),
@@ -763,7 +785,7 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
                 P_oob=(_sidecar(rowsP[pdropped], P.indices[pdropped],
                                 P.data[pdropped], device)
                        if use_P and pdropped is not None else None),
-                cperm=cperm_dev, ciperm=ciperm_dev))
+                bts=bts, cperm=cperm_dev, ciperm=ciperm_dev))
         A = Ac
         coords = ccoords
         band_key = ckey
@@ -989,6 +1011,8 @@ def band_vcycle(amg: BandAMG, r: torch.Tensor, bt=None) -> torch.Tensor:
     def smooth(lv, As, r, l):
         if l == 0 and bt is not None:
             return bt_apply(bt, r)
+        if lv.bts is not None:
+            return bt_apply(lv.bts, r)
         return _cheby_smooth(lv, As, r)
 
     def cycle(l, r):

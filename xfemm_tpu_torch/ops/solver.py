@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -158,7 +159,8 @@ CHECK_EVERY = 16
 #: masked iterations launched past each engine's stop, summed over
 #: passes: the host enqueued them before it saw the device finish. They
 #: do not change the result; on the CPU there are none
-MASKED = {"ell-amg": 0, "jacobi": 0, "csym-pairs": 0, "band-csym": 0}
+MASKED = {"ell-amg": 0, "jacobi": 0, "csym-pairs": 0, "band-csym": 0,
+          "dd-halo": 0, "dd-halo-csym": 0, "dd-band": 0}
 
 
 def _masked_loop(running, step, cuda: bool) -> int:
@@ -781,7 +783,12 @@ def _setup_hierarchy(session: Session, Ap, coords, dev,
             bt_coarse_budget=plan["bt_budget"],
             bt_transient_budget=plan["bt_transient"], coords=coords_p,
             budget_bytes=plan["hier_budget"], fine_full=plan["fine_full"],
-            band_key=key_p, fine_abf=not plan["bt_smooth"], device=dev)
+            band_key=key_p, fine_abf=not plan["bt_smooth"],
+            # the JAX package's experiment switch, off by default there
+            # too: its 994k coarse-factor build ran out of TPU memory
+            coarse_bt_smooth=bool(os.environ.get(
+                "XFEMM_TPU_COARSE_BT_SMOOTH")),
+            device=dev)
 
 
 def _build_factor(session: Session, Ap, dev) -> None:
@@ -1422,7 +1429,6 @@ def ac_gmres_m(with_factor: bool) -> int:
     (each iteration contracts strongly, so short cycles check the true
     residual sooner), 24 with the V-cycle alone; the environment's
     ``XFEMM_TPU_AC_GMRES_M`` overrides both."""
-    import os
     return int(os.environ.get("XFEMM_TPU_AC_GMRES_M",
                               "6" if with_factor else "24"))
 
