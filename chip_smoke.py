@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (xfemm_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only | --large-only | --heat-elec-only
-                           | --dd-only]
+                           | --dd-only | --dist-only]
 
 Phases (any failure exits non-zero, with no result line):
 
@@ -132,6 +132,25 @@ Phases (any failure exits non-zero, with no result line):
    CG, peak memory; A within 1e-5; the live coarse factor's sweeps
    against the plain versions) (``--dd-only`` runs phase 1 and this
    phase alone, with its own single-device 250k reference solve);
+3g. the domain decomposition over a process group (slice 12), one
+   process per part (``parallel/launch.spawn``, four ranks): NCCL with
+   a card per rank on a machine with four cards, else gloo with the four
+   ranks on the one card (printed). Each rank solves dd250k,
+   ``magnetostatics.solve(..., devices=4, device_mesh=group)``, cold
+   and warm (its phase seconds, ms per CG iteration and peak memory
+   printed; the residual, band_dd on every linear solve, A within 1e-9
+   of max|A| of phase 3f's stacked dd250k solve, the same A on every
+   rank, each rank's K1, K2 and K3+K4 launched: the path's launches are
+   the ranks' sum; each rank's ms per all-gather of a part vector and
+   per scalar psum); rank 0 holds its live per-part band and factor
+   against the plain versions; the f64 first-generation path on the
+   250k first linear system over the ranks (1e-6 of a host spsolve),
+   ACwound (the complex-symmetric halo PCG over the ranks) and ACtest
+   (its circuit Case-2 DOFs keep the single-device path on every rank)
+   against golden (1e-6), each with the same solution on every rank; a
+   failing rank fails the script (``--dist-only`` runs phase 1, a
+   single-device and the stacked dd250k reference solve, and this
+   phase);
 4. the large path (slice 2): ``benchprob.build(4_500_000)`` (4,468,229
    nodes), one cold solve on the card at the card's own memory size;
    check the planner's regime (partitioned ordering, f32 triu fine band,
@@ -2862,22 +2881,23 @@ def dd_geometry(sess) -> str:
 
 def check_dd_live(torch, label: str, sess) -> None:
     """K1 on the session's live per-part bands (the first and the last
-    part) and the sweeps (K2, K3+K4) on their live factors against the
-    plain versions (check_live_hierarchy: K1 at TOL, the sweeps step by
-    step at TOL and chained, each timed against its bytes bound). These
-    launches are checks, not the path's."""
+    part it holds: all four stacked, or a rank's own) and the sweeps (K2,
+    K3+K4) on their live factors against the plain versions
+    (check_live_hierarchy: K1 at TOL, the sweeps step by step at TOL and
+    chained, each timed against its bytes bound). These launches are
+    checks, not the path's."""
     from types import SimpleNamespace
 
     from xfemm_tpu_torch.ops.band import BandMatrix
     from xfemm_tpu_torch.parallel import band_dd
     st = sess._bdd
     dense, _oob, _invd = band_dd.device_values(st, st.Ap_pattern)
-    for p in sorted({0, st.ndev - 1}):
+    for p in sorted({0, st.nl - 1}):
         band = BandMatrix(dense[p], st.shift0, band_dd.CCHUNK, st.nloc)
-        check_live_hierarchy(torch, f"{label} part {p}",
+        check_live_hierarchy(torch, f"{label} part {st.lo + p}",
                              SimpleNamespace(levels=()),
                              band_dd.part_factor(sess._bdd_bt, p),
-                             ((f"band {p}", band),))
+                             ((f"band {st.lo + p}", band),))
     del dense
     torch.cuda.empty_cache()
 
@@ -2939,6 +2959,7 @@ def dd_250k(torch, prob, mesh, A_ref):
             if not dA <= 1e-5:
                 fail(f"dd250k {label}: A is {dA:.3e} from the single-device "
                      f"solve's")
+            REFERENCES[f"dd250k {label}"] = sol.A
             if first is None:
                 first = (rec.systems[0], rec.coords[0])
     finally:
@@ -3270,6 +3291,249 @@ def dd_paths(torch, mesh, A_ref) -> dict:
     paths["dd250k first generation"] = dd_first_generation(torch, first)
     paths.update(a5_path(torch, prob, mesh, A_ref))
     return paths
+
+
+#: seconds the dist phase's ranks may take, all three paths together
+DIST_WALL = 300.0
+
+
+def digest(x) -> str:
+    import hashlib
+
+    import numpy as np
+    return hashlib.blake2b(np.ascontiguousarray(x).tobytes(),
+                           digest_size=8).hexdigest()
+
+
+def comm_costs(torch, group, comm, nloc: int, device, reps: int = 50):
+    """The communicator's cost per call on this rank, ms (host clock
+    around ``reps`` calls ending in a synchronize, after one warm-up and
+    a barrier): the all-gather of a (1, nloc) f32 part vector (the band
+    operator's, once per CG iteration) and the sum of one f32 scalar
+    (``psum``, three per CG iteration)."""
+    import torch.distributed as dist
+
+    x = torch.ones((1, nloc), dtype=torch.float32, device=device)
+    s = torch.ones((1,), dtype=torch.float32, device=device)
+    out = {}
+    for name, fn in (("all_gather", lambda: comm.all_gather(x)),
+                     ("psum", lambda: comm.psum(s))):
+        fn()
+        torch.cuda.synchronize()
+        dist.barrier(group)
+        t0 = time.time()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = 1e3 * (time.time() - t0) / reps
+    return out
+
+
+def dist_rank(group, device, A_dd):
+    """Body of each rank of the dist phase (a process of its own, one
+    part, ``launch.spawn``): dd250k, ``magnetostatics.solve(...,
+    devices=4, device_mesh=group)`` on the 250k problem cold and warm
+    (the kernels' launches counted from 0 over both, A against the
+    stacked dd250k solve of the same label, ``A_dd[label]``); rank 0
+    then holds its live band and factor against the plain versions
+    (``check_dd_live``); each rank times its communicator
+    (``comm_costs``); the f64 first-generation path on the cold solve's
+    first linear system (rank 0 against a host spsolve); ACwound (the complex-symmetric halo PCG
+    over the ranks) and ACtest (circuit Case-2 DOFs: the single-device
+    path on every rank) against their golden files. Returns what the
+    parent prints and checks, with digests of every solution."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from xfemm_tpu_torch import models
+    from xfemm_tpu_torch.geometry import femfile
+    from xfemm_tpu_torch.mesh.meshdata import read_mesh_files
+    from xfemm_tpu_torch.models import benchprob, magnetostatics
+    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.parallel import driver
+    from xfemm_tpu_torch.utils import profiling
+
+    rank = dist.get_rank(group)
+    prob = benchprob.build(NODES)
+    mesh = get_mesh(prob, NODES)
+    out = {"rank": rank, "device": str(device), "solves": []}
+    for k in solver.MASKED:
+        solver.MASKED[k] = 0
+    profiling.ENABLED = True
+    kernels.reset_launches()
+    first = sess = None
+    for label in ("cold", "warm"):
+        profiling.reset()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier(group)
+        with DDRecorder(keep=label == "cold") as rec:
+            t0 = time.time()
+            sol = magnetostatics.solve(prob, mesh, devices=DD_PARTS,
+                                       device_mesh=group)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+        (sess,) = rec.sessions
+        cg = sum(c[1] for c in rec.calls)
+        out["solves"].append(dict(
+            label=label, seconds=dt, residual=sol.residual,
+            ok=sol.residual <= prob.Precision,
+            newton=sol.newton_iterations, passes=rec.passes, cg=cg,
+            band_dd=(not sess._bdd_disabled
+                     and {c[0] for c in rec.calls} == {"band_dd"}),
+            engines=rec.engines(), phases=dd_phase_seconds(profiling),
+            ms_per_cg=1e3 * profiling.phase_seconds("dd cg") / max(cg, 1),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            dA=float(np.abs(sol.A - A_dd[label]).max()
+                     / np.abs(A_dd[label]).max()),
+            digest=digest(sol.A), geometry=dd_geometry(sess)))
+        if first is None:
+            first = (rec.systems[0], rec.coords[0])
+    profiling.ENABLED = False
+    out["launches"] = dict(kernels.LAUNCHES)
+    out["masked"] = dict(solver.MASKED)
+    if rank == 0:
+        check_dd_live(torch, f"dist250k rank {rank}", sess)
+    out["comm_ms"] = comm_costs(torch, group, sess.comm, sess._bdd.nloc,
+                                device)
+    del sess, sol
+    torch.cuda.empty_cache()
+
+    system, coords = first
+    blocks, b, fixed_mask, fixed_vals = system[:4]
+    fsess = driver.DistributedSession(DD_PARTS, mesh=group)
+    fsess._bdd_disabled = True
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier(group)
+    t0 = time.time()
+    x, rel, it = fsess.solve(blocks, b, fixed_mask, fixed_vals, 1e-10,
+                             coords=coords)
+    torch.cuda.synchronize()
+    fg = dict(seconds=time.time() - t0, iterations=it, relres=rel,
+              schwarz=fsess.schwarz, digest=digest(x),
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+              masked=solver.MASKED["dd-halo"], err=None, spsolve_s=None)
+    if rank == 0:
+        x_ref, fg["spsolve_s"] = host_reference(system)
+        fg["err"] = float(np.abs(x - x_ref).max() / np.abs(x_ref).max())
+    out["first_gen"] = fg
+    del fsess
+
+    out["fixtures"] = {}
+    for stem in ("ACwound", "ACtest"):
+        p = femfile.load(os.path.join(FIXTURES, f"{stem}.fem"))
+        fmesh = read_mesh_files(os.path.join(FIXTURES, stem))
+        dist.barrier(group)
+        with DDRecorder() as rec:
+            t0 = time.time()
+            sol = models.solve(p, fmesh, devices=DD_PARTS, device_mesh=group)
+            torch.cuda.synchronize()
+        err, lc = golden_distance(stem, fmesh, sol)
+        out["fixtures"][stem] = dict(
+            seconds=time.time() - t0, nodes=fmesh.num_nodes,
+            residual=sol.residual, ok=sol.residual <= p.Precision,
+            iterations=sol.iterations, err=err, label_cases=lc,
+            engines=rec.engines() or "single device (circuit Case-2 DOFs)",
+            digest=digest(sol.A))
+    return out
+
+
+def dist_path(torch) -> dict:
+    """Phase: the domain decomposition over a process group, one process
+    per part (``parallel/launch.spawn``, four ranks): NCCL with one card
+    per rank where the machine has four cards, else gloo with the four
+    ranks on the one card (their contexts time-slice it: a correctness
+    run, not a speed run). Each rank runs ``dist_rank``; the parent
+    prints every rank's phase seconds, ms per CG iteration and peak
+    memory, and checks: the residual, band_dd on every dd250k linear
+    solve, A within 1e-9 of max|A| of the stacked dd250k solve, the
+    same solution on every rank (digests) for every path, each rank's
+    K1, K2 and K3+K4 launched, the first-generation path within 1e-6 of
+    the host spsolve, ACwound and ACtest within 1e-6 of golden. Returns
+    the dd250k launches summed over the ranks."""
+    from xfemm_tpu_torch.parallel import launch
+
+    backend = launch.backend_for("cuda", DD_PARTS)
+    where = ("one card per rank" if backend == "nccl" else
+             f"the {DD_PARTS} ranks on one card")
+    print(f"dist250k: {DD_PARTS} ranks over {backend}, {where} "
+          f"({torch.cuda.device_count()} card(s) visible)", flush=True)
+    clear_solver_caches(torch)
+    t0 = time.time()
+    try:
+        res = launch.spawn(dist_rank, DD_PARTS, backend, "cuda",
+                           args=({k: REFERENCES[f"dd250k {k}"]
+                                  for k in ("cold", "warm")},),
+                           wall=DIST_WALL)
+    except RuntimeError as exc:
+        fail(f"dist250k: {exc}")
+    print(f"dist250k: the ranks ran in {time.time() - t0:.1f} s "
+          f"(devices {[r['device'] for r in res]})", flush=True)
+
+    def same(get, what):
+        if len({get(r) for r in res}) != 1:
+            fail(f"dist250k: the ranks' {what} differ")
+
+    for i, label in enumerate(("cold", "warm")):
+        for r in res:
+            v = r["solves"][i]
+            print(f"dist250k {label} solve, rank {r['rank']}: "
+                  f"{v['seconds']:.3f} s, residual {v['residual']:.3e}, "
+                  f"Newton iterations {v['newton']}, CG iterations "
+                  f"{v['cg']}, per refinement pass {v['passes']}; engines "
+                  f"{v['engines']}; {v['geometry']}; {v['phases']}; "
+                  f"{v['ms_per_cg']:.3f} ms per CG iteration; peak device "
+                  f"memory {v['peak_gb']:.2f} GB; max|A - A_dd| / "
+                  f"max|A_dd| {v['dA']:.3e}", flush=True)
+            if not v["ok"]:
+                fail(f"dist250k {label} rank {r['rank']}: residual "
+                     f"{v['residual']:.3e}")
+            if not v["band_dd"]:
+                fail(f"dist250k {label}: band_dd did not serve every "
+                     f"linear solve ({v['engines']})")
+            if not v["dA"] <= 1e-9:
+                fail(f"dist250k {label}: A is {v['dA']:.3e} from the "
+                     f"stacked dd250k solve's")
+        same(lambda r: r["solves"][i]["digest"], f"{label} A")
+        same(lambda r: r["solves"][i]["cg"], f"{label} CG counts")
+    for r in res:
+        print(f"dist250k rank {r['rank']} launches over both solves "
+              f"{r['launches']}; masked iterations {r['masked']}; "
+              f"communicator ms per call: all_gather of a part vector "
+              f"{r['comm_ms']['all_gather']:.4f}, psum of a scalar "
+              f"{r['comm_ms']['psum']:.4f}", flush=True)
+        for name in ("band_mv", "bt_fwd", "bt_qbwd"):
+            if not r["launches"][name] > 0:
+                fail(f"dist250k: rank {r['rank']} never launched {name}")
+    launches = {k: sum(r["launches"][k] for r in res)
+                for k in res[0]["launches"]}
+
+    fg = res[0]["first_gen"]
+    print(f"dist250k first-generation path (halo PCG, f64, Schwarz "
+          f"{'kept' if fg['schwarz'] else 'latched off to Jacobi'}) over "
+          f"the ranks: {fg['seconds']:.3f} s, {fg['iterations']} "
+          f"iterations ({1e3 * fg['seconds'] / max(fg['iterations'], 1):.3f}"
+          f" ms per iteration incl. the Schwarz build), relres "
+          f"{fg['relres']:.3e}, masked iterations {fg['masked']}; peak "
+          f"device memory per rank "
+          f"{[round(r['first_gen']['peak_gb'], 2) for r in res]} GB; vs "
+          f"host spsolve {fg['err']:.3e} (tol 1e-6; spsolve "
+          f"{fg['spsolve_s']:.1f} s)", flush=True)
+    if not (fg["relres"] <= 1e-10 and fg["err"] <= 1e-6):
+        fail("dist250k: the first-generation path misses the host "
+             "reference")
+    same(lambda r: r["first_gen"]["digest"], "first-generation x")
+    for stem in ("ACwound", "ACtest"):
+        f = res[0]["fixtures"][stem]
+        print(f"{stem} over the ranks ({f['nodes']} nodes): "
+              f"{f['seconds']:.3f} s, residual {f['residual']:.2e}, "
+              f"iterations {f['iterations']}, engines {f['engines']}; vs "
+              f"golden {f['err']:.3e} (tol 1e-6), label cases "
+              f"{'match' if f['label_cases'] else 'DIFFER'}", flush=True)
+        if not (f["ok"] and f["err"] <= 1e-6 and f["label_cases"]):
+            fail(f"{stem} over the ranks misses its golden file")
+        same(lambda r: r["fixtures"][stem]["digest"], f"{stem} A")
+    return {"dist250k": launches}
 
 
 def clear_solver_caches(torch) -> None:
@@ -3728,6 +3992,7 @@ def main() -> None:
     ap.add_argument("--large-only", action="store_true")
     ap.add_argument("--heat-elec-only", action="store_true")
     ap.add_argument("--dd-only", action="store_true")
+    ap.add_argument("--dist-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a "
@@ -3754,7 +4019,7 @@ def main() -> None:
         heat_elec_paths(torch)
         print("--heat-elec-only: no result line", flush=True)
         return
-    if args.dd_only:
+    if args.dd_only or args.dist_only:
         from xfemm_tpu_torch.models import benchprob, magnetostatics
         prob = benchprob.build(NODES)
         mesh = get_mesh(prob, NODES)
@@ -3763,8 +4028,13 @@ def main() -> None:
         print(f"250k single-device reference solve {time.time() - t0:.3f} s",
               flush=True)
         clear_solver_caches(torch)
-        dd_paths(torch, mesh, A_ref)
-        print("--dd-only: no result line", flush=True)
+        if args.dd_only:
+            dd_paths(torch, mesh, A_ref)
+        else:
+            dd_250k(torch, prob, mesh, A_ref)
+            dist_path(torch)
+        print(f"--{'dd' if args.dd_only else 'dist'}-only: no result line",
+              flush=True)
         return
     kernel_phase(torch, SEED)
     if args.kernels_only:
@@ -3785,6 +4055,7 @@ def main() -> None:
         paths.update(ac_axi_paths(torch))
         paths.update(heat_elec_paths(torch))
         paths.update(dd_paths(torch, mesh, sol_default.A))
+        paths.update(dist_path(torch))
         del mesh, sol_default
     large_launches, amg, bt = large_path(torch, LARGE_NODES)
     paths["4.47M"] = large_launches

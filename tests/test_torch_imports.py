@@ -140,3 +140,25 @@ print(sorted(m for m in sys.modules
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=ROOT).stdout.strip()
     assert out == "[]", out
+
+
+def test_dist_modules_stand_alone():
+    """The multi-process communicator (``parallel.comm``'s
+    ``GroupComm``), the process-group setup (``parallel.launch``) and
+    the ranks' bodies (``parallel.rankjobs``, what a spawned rank
+    imports) load without jax or the JAX package, and importing them
+    starts no process group."""
+    code = f"""
+import sys
+sys.path.insert(0, {str(ROOT)!r})
+import torch.distributed as dist
+from xfemm_tpu_torch.parallel import comm, launch, rankjobs
+assert callable(launch.spawn) and callable(launch.init_from_env)
+assert comm.STACKED.lockstep is False and comm.GroupComm.lockstep is True
+assert callable(rankjobs.linear_solves) and not dist.is_initialized()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "xfemm_tpu")))
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT).stdout.strip()
+    assert out == "[]", out

@@ -20,6 +20,14 @@ over N parts (``parallel/driver.py``), all N on that one device; AC
 problems with circuit Case-2 DOFs keep the single-device path:
 
     python -m xfemm_tpu_torch solve problem.fem --devices 4
+
+Under ``torchrun`` (which sets ``WORLD_SIZE``) each rank is one part:
+``WORLD_SIZE`` must equal N, the ranks join one process group
+(``parallel/launch.py``: NCCL with a card per rank, gloo with
+``--device cpu``), and rank 0 alone prints and writes the solution:
+
+    torchrun --nproc-per-node 4 -m xfemm_tpu_torch solve problem.fem \
+        --devices 4
 """
 
 from __future__ import annotations
@@ -55,11 +63,11 @@ def cmd_mesh(args) -> int:
 
 
 def cmd_solve(args) -> int:
-    from .constants import FileType
-    from .io import ansfile
     from .mesh.meshdata import read_mesh_files
     from . import models
 
+    if "WORLD_SIZE" in os.environ:
+        return _solve_ranks(args)
     base = os.path.splitext(args.file)[0]
     problem = _load(args.file)
     if args.premeshed:
@@ -73,7 +81,56 @@ def cmd_solve(args) -> int:
         kw["devices"] = args.devices
     sol = models.solve(problem, mesh, device=args.device,
                        hbm_bytes=args.hbm_bytes, **kw)
-    elapsed = time.time() - t0
+    _write(problem, mesh, sol, base, time.time() - t0)
+    return 0
+
+
+def _solve_ranks(args) -> int:
+    """``solve`` in one rank of a ``torchrun`` launch: one part per rank
+    over the launch's process group; rank 0 prints and writes."""
+    import torch.distributed as dist
+
+    from .mesh.meshdata import read_mesh_files
+    from . import models
+    from .parallel import launch
+
+    world = int(os.environ["WORLD_SIZE"])
+    if args.devices != world:
+        print(f"solve: --devices {args.devices} under a launch of {world} "
+              f"ranks; one part per rank needs --devices {world}",
+              file=sys.stderr)
+        return 2
+    group, dev, created = launch.init_from_env(args.device)
+    try:
+        lead = dist.get_rank(group) == 0
+        base = os.path.splitext(args.file)[0]
+        if args.premeshed:
+            problem, mesh = _load(args.file), read_mesh_files(base)
+        else:
+            # rank 0 meshes; the others receive its problem and mesh
+            box = [None]
+            if lead:
+                problem = _load(args.file)
+                box = [(problem, _mesh(problem, base, write=False))]
+            dist.broadcast_object_list(box, src=0, group=group)
+            problem, mesh = box[0]
+        if lead:
+            print(f"solving {mesh.num_nodes} nodes over {world} ranks "
+                  f"({dist.get_backend(group)}) ...")
+        t0 = time.time()
+        sol = models.solve(problem, mesh, devices=world, device_mesh=group,
+                           device=dev, hbm_bytes=args.hbm_bytes)
+        if lead:
+            _write(problem, mesh, sol, base, time.time() - t0)
+    finally:
+        if created:
+            dist.destroy_process_group()
+    return 0
+
+
+def _write(problem, mesh, sol, base: str, elapsed: float) -> None:
+    from .constants import FileType
+    from .io import ansfile
 
     if problem.filetype == FileType.MAGNETICS:
         out = base + ".ans"
@@ -94,7 +151,6 @@ def cmd_solve(args) -> int:
             list(zip(sol.conductor_V, sol.conductor_q)), out)
     print(f"solved in {elapsed:.2f}s (residual {sol.residual:.2e}, "
           f"{sol.iterations} CG iterations) -> {out}")
-    return 0
 
 
 def cmd_script(args) -> int:
@@ -142,7 +198,9 @@ def main(argv=None) -> int:
     spp.add_argument("file")
     spp.add_argument("--devices", type=int, default=None,
                      help="run the linear solves as a domain "
-                          "decomposition over N parts on the one device")
+                          "decomposition over N parts on the one device "
+                          "(under torchrun: one part per rank, N = "
+                          "WORLD_SIZE)")
     _device_args(spp)
     spp.add_argument("--premeshed", action="store_true",
                      help="read existing .node/.ele/.edge/.pbc files")

@@ -17,6 +17,7 @@ from .ops.band import BandAMG, BandLevel, BandMatrix, FineLayout, Sidecar
 from .ops.blocktri import BTCoarse, BTDeviceMaps, BTFactor
 from .ops.newton import DeviceHeat
 from .parallel.band_dd import BandDDState
+from .parallel.comm import STACKED
 from .parallel.partition import PartitionedSystem
 
 
@@ -164,4 +165,4 @@ def band_dd_state(st, device="cpu") -> BandDDState:
         NB=int(st.NB),
         bt_maps=[bt_device_maps(m, device) for m in st.bt_maps],
         bt_lsel=[np.array(a) for a in st.bt_lsel], data_map=st.data_map,
-        Ap_pattern=st.Ap_pattern)
+        Ap_pattern=st.Ap_pattern, lo=0, nl=int(st.ndev), comm=STACKED)

@@ -53,7 +53,8 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
     (CUDA when omitted; ``"cpu"`` runs the kernels' plain versions and
     needs ``hbm_bytes``). ``devices=N`` solves it as a domain
     decomposition over N parts (``parallel/driver.py``) on that device or
-    the one device of ``device_mesh``."""
+    the one device of ``device_mesh``, or one part per rank of a process
+    group ``device_mesh``."""
     from ..mesh.meshdata import resolve_default_labels
     dev = solver.resolve_device(device)
     dsess = dd_driver.session(devices, device_mesh, dev)

@@ -367,7 +367,8 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     the previous solution's field. ``devices=N`` runs the
     complex-symmetric solves as a domain decomposition over N parts
     (``parallel/driver.py``, (re, im) pairs with one halo exchange per
-    product) on that device or the one device of ``device_mesh``, unless
+    product) on that device or the one device of ``device_mesh``, or one
+    part per rank of a process group ``device_mesh``, unless
     the problem has circuit Case-2 DOFs, whose bordered rows couple every
     part: those keep the single-device path, as in the JAX package."""
     assert problem.ProblemType == ProblemType.PLANAR, \

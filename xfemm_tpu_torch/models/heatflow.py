@@ -426,7 +426,8 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     ``PrevSoln``) is the previous time step's nodal T of a transient
     (``dT`` != 0) step. ``devices=N`` runs every linear solve as a
     domain decomposition over N parts (``parallel/driver.py``) on the
-    solve's device or the one device of ``device_mesh``; the K(T) loop
+    solve's device or the one device of ``device_mesh``, or one part per
+    rank of a process group ``device_mesh``; the K(T) loop
     is then not taken, as in the JAX package."""
     from ..mesh.meshdata import resolve_default_labels
     from .magnetostatics import _problem_fingerprint

@@ -801,8 +801,10 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     ``devices=N`` runs every linear solve of the Newton loop as a domain
     decomposition over N parts (``parallel/driver.py``: the sharded band
     engine, or the element-block Schwarz PCG), all N parts on the solve's
-    device or on the one device of ``device_mesh``; the Newton chain then
-    stays on the host, as in the JAX package.
+    device or on the one device of ``device_mesh``, or one part per rank
+    when ``device_mesh`` is a ``torch.distributed`` process group of N
+    ranks (each rank calls ``solve`` alike and gets the same solution);
+    the Newton chain then stays on the host, as in the JAX package.
     """
     assert problem.ProblemType == ProblemType.PLANAR, \
         "axisymmetric problems solve through models/axisymmetric.py"

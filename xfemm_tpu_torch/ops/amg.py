@@ -257,7 +257,9 @@ def vcycle(amg: DeviceAMG, r):
     alone. Coarse sizes come from the next level's shapes. A hierarchy
     whose tensors carry a leading part axis (``parallel.schwarz``: one
     hierarchy per part, ``omega`` of shape (P, 1)) cycles every part at
-    once on an (P, n) residual."""
+    once on an (P, n) residual; its bottom products run part by part, so
+    a part's result does not depend on how many parts share the call
+    (a batched product rounds by its batch)."""
     from .kernels import fp32_matmul
     L = len(amg.levels)
 
@@ -266,7 +268,8 @@ def vcycle(amg: DeviceAMG, r):
             with fp32_matmul():
                 if r.dim() == 1:
                     return amg.coarse_inv @ r
-                return (amg.coarse_inv @ r[..., None])[..., 0]
+                return torch.stack([amg.coarse_inv[p] @ r[p]
+                                    for p in range(r.shape[0])])
         lv = amg.levels[l]
         nc = (amg.levels[l + 1].ell_vals.shape[-2] if l + 1 < L
               else amg.coarse_inv.shape[-1])

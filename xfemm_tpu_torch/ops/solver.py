@@ -163,15 +163,20 @@ MASKED = {"ell-amg": 0, "jacobi": 0, "csym-pairs": 0, "band-csym": 0,
           "dd-halo": 0, "dd-halo-csym": 0, "dd-band": 0}
 
 
-def _masked_loop(running, step, cuda: bool) -> int:
+def _masked_loop(running, step, cuda: bool, lockstep: bool = False) -> int:
     """Drive a device-side loop from the host: ``running()`` is the
     device's "still active" flag, ``step(active)`` one iteration that
     leaves the state unchanged where ``active`` is False. On the card
     the host enqueues iterations ahead, reads the state once per
     CHECK_EVERY iterations and polls the CUDA event behind each
     iteration's flag, ending as soon as one reports finished; on the
-    CPU it checks every iteration. Returns the iterations launched."""
-    if cuda:
+    CPU it checks every iteration. ``lockstep`` (the ranks of a process
+    group, whose steps hold collectives: each must launch the same
+    iterations) drops the polls, which end where the card happens to
+    be, and reads the state only once per CHECK_EVERY iterations.
+    Returns the iterations launched."""
+    poll = cuda and not lockstep
+    if poll:
         flags = torch.empty(CHECK_EVERY, dtype=torch.bool, pin_memory=True)
     launched = 0
     done = False
@@ -179,17 +184,17 @@ def _masked_loop(running, step, cuda: bool) -> int:
         pending = []
         for j in range(CHECK_EVERY):
             active = running()
-            if cuda:
+            if poll:
                 flags[j].copy_(active, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record()
                 pending.append((j, ev))
-            elif not bool(active):
+            elif not cuda and not bool(active):
                 done = True
                 break
             launched += 1
             step(active)
-            while cuda and pending and pending[0][1].query():
+            while poll and pending and pending[0][1].query():
                 k, _ = pending.pop(0)
                 if not bool(flags[k]):
                     done = True

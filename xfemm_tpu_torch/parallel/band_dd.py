@@ -17,12 +17,16 @@ splits the band engine itself:
   part's band is factored block-tridiagonally (``blocktri``) and applied
   by the sweep kernels K2 and K3+K4 (``blocktri.bt_apply``).
 
-The host structure is the JAX package's, bit for bit. The parts' K1 and
-sweep launches run one after another on the current stream: the sweeps
-are cooperative persistent launches that each want every SM of the card.
-The CG is f32 (as the JAX package's), a masked host loop
-(``solver._masked_loop``; masked iterations in
-``solver.MASKED["dd-band"]``) inside the driver's f64 refinement.
+The host structure is the JAX package's, bit for bit, and every process
+computes all of it. The device tensors hold the parts of the
+communicator's process (``comm.local``): all P parts under the stacked
+communicator, whose K1 and sweep launches run one after another on the
+current stream (the sweeps are cooperative persistent launches that
+each want every SM of the card), or the rank's own part under a process
+group (``comm.GroupComm``), on its own card. The CG is f32 (as the JAX
+package's), a masked host loop (``solver._masked_loop``; masked
+iterations in ``solver.MASKED["dd-band"]``) inside the driver's f64
+refinement.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from ..ops import blocktri
 from ..ops import solver as solver_mod
 from ..ops.band import BandMatrix, band_matvec
 from ..ops.blocktri import BTFactor
-from . import comm
+from .comm import STACKED
 
 CCHUNK = 128
 ROW_TILE = 128
@@ -46,7 +50,9 @@ ROW_TILE = 128
 
 class BandDDState(NamedTuple):
     """Host maps and device tensors of a sharded band system (its
-    pattern frozen; values refresh per solve)."""
+    pattern frozen; values refresh per solve). The host maps cover all
+    ``ndev`` parts; the device tensors and the factor maps cover the
+    ``nl`` parts ``lo .. lo+nl-1`` that this process holds."""
     ndev: int
     n: int                    # logical (reduced) dimension
     nloc: int                 # padded per-part size (multiple of b)
@@ -59,10 +65,10 @@ class BandDDState(NamedTuple):
     W: int
     NT: int
     # device fill maps (flattened over all in-part entries)
-    fill_pos: torch.Tensor    # flat position into (P*NT*R*W)
+    fill_pos: torch.Tensor    # flat position into (nl*NT*R*W)
     fill_sel: torch.Tensor    # source position in Ap.data
     pad_pos: torch.Tensor     # unit-diagonal band slots for padding rows
-    # sidecar (padded per part): (P, M)
+    # sidecar (padded per part): (nl, M)
     oob_rows: torch.Tensor
     oob_cols: torch.Tensor    # global padded index part*nloc + loc
     oob_sel: torch.Tensor     # source in Ap.data (0 for padding)
@@ -70,11 +76,14 @@ class BandDDState(NamedTuple):
     # block-tridiagonal factor structure per part
     b: int
     NB: int
-    bt_maps: list             # per-part BTDeviceMaps
-    bt_lsel: list             # per-part Ap.data positions (-1 -> 1.0)
+    bt_maps: list             # per local part BTDeviceMaps
+    bt_lsel: list             # per local part Ap.data positions (-1 -> 1.0)
     # CSR entry map At order -> Ap order
     data_map: np.ndarray
     Ap_pattern: object        # Ap with pattern only (indices/indptr)
+    lo: int                   # global index of the first local part
+    nl: int                   # local parts
+    comm: object              # the parts' communicator (``comm.py``)
 
 
 def _rcb_parts(coords: np.ndarray, ndev: int) -> np.ndarray:
@@ -104,12 +113,15 @@ def _rcb_parts(coords: np.ndarray, ndev: int) -> np.ndarray:
 
 
 def setup_band_dd(At: sp.csr_matrix, coords: np.ndarray, ndev: int,
-                  device="cpu") -> "BandDDState | None":
+                  device="cpu", comm=STACKED) -> "BandDDState | None":
     """Build the sharded band structure from the (Dirichlet-eliminated)
-    assembled CSR, its maps as tensors on ``device``. Returns None when
-    ineligible (a part's bandwidth exceeds the largest block size). The
-    host arrays are the JAX package's, bit for bit."""
+    assembled CSR, the maps of ``comm``'s parts as tensors on
+    ``device``. Returns None when ineligible (a part's bandwidth exceeds
+    the largest block size). The host arrays are the JAX package's, bit
+    for bit."""
     n = At.shape[0]
+    local = comm.local(np.arange(ndev))
+    p0, nl = int(local[0]), len(local)
     part = _rcb_parts(np.asarray(coords, np.float64), ndev)
 
     # per-part RCM, part-major global permutation
@@ -195,6 +207,11 @@ def setup_band_dd(At: sp.csr_matrix, coords: np.ndarray, ndev: int,
     fill_sel = np.nonzero(inpart)[0]
     pad_pos = (((padp * NT + padr // ROW_TILE) * ROW_TILE
                 + padr % ROW_TILE) * W + wl_pad)
+    # the local parts' slots, offset to the first local part's band
+    mine = (rpart[inpart] >= p0) & (rpart[inpart] < p0 + nl)
+    off = p0 * NT * ROW_TILE * W
+    fill_pos, fill_sel = fill_pos[mine] - off, fill_sel[mine]
+    pad_pos = pad_pos[(padp >= p0) & (padp < p0 + nl)] - off
 
     # K1 streams part p's band as dense[p] of the (P, NT, R, W) tensor:
     # its rows (and so every part's offset) must be 16-byte multiples
@@ -227,7 +244,7 @@ def setup_band_dd(At: sp.csr_matrix, coords: np.ndarray, ndev: int,
     bt_maps = []
     bt_lsel = []
     NB = nloc // b
-    for p in range(ndev):
+    for p in local:
         sel_p = np.nonzero(inpart & (rpart == p))[0]
         lr = rloc_g[sel_p]
         lc = cloc_g[sel_p]
@@ -260,60 +277,66 @@ def setup_band_dd(At: sp.csr_matrix, coords: np.ndarray, ndev: int,
         shift0=shift0, W=W, NT=NT,
         fill_pos=dev(fill_pos), fill_sel=dev(fill_sel),
         pad_pos=dev(pad_pos),
-        oob_rows=dev(oob_rows), oob_cols=dev(oob_cols),
-        oob_sel=dev(oob_sel), oob_w=dev(oob_w, torch.float32),
+        oob_rows=dev(comm.local(oob_rows)),
+        oob_cols=dev(comm.local(oob_cols)),
+        oob_sel=dev(comm.local(oob_sel)),
+        oob_w=dev(comm.local(oob_w), torch.float32),
         b=b, NB=NB, bt_maps=bt_maps, bt_lsel=bt_lsel,
-        data_map=None, Ap_pattern=Ap)
+        data_map=None, Ap_pattern=Ap, lo=p0, nl=nl, comm=comm)
 
 
 def device_values(st: BandDDState, Ap: sp.csr_matrix):
-    """Per-solve value refresh: the (P, NT, R, W) f32 band (one
-    ``index_add_`` of the in-part values and the padding rows' unit
-    diagonals, whose slots are all distinct), the sidecar values and the
-    Jacobi stopping weights, all from the permuted CSR."""
+    """Per-solve value refresh of the local parts: the (nl, NT, R, W) f32
+    band (one ``index_add_`` of the in-part values and the padding rows'
+    unit diagonals, whose slots are all distinct), the sidecar values and
+    the Jacobi stopping weights, all from the permuted CSR."""
     dev = st.fill_pos.device
     data = torch.as_tensor(np.asarray(Ap.data, np.float32), device=dev)
-    size = st.ndev * st.NT * ROW_TILE * st.W
+    size = st.nl * st.NT * ROW_TILE * st.W
     dense = torch.zeros(size, dtype=torch.float32, device=dev).index_add_(
         0, torch.cat([st.fill_pos, st.pad_pos]),
         torch.cat([data[st.fill_sel],
                    torch.ones(st.pad_pos.shape[0], device=dev)]))
-    dense = dense.view(st.ndev, st.NT, ROW_TILE, st.W)
+    dense = dense.view(st.nl, st.NT, ROW_TILE, st.W)
     oob_vals = data[st.oob_sel] * st.oob_w
     dg = np.asarray(Ap.diagonal())
     dg[dg == 0.0] = 1.0
     invd = np.ones((st.ndev, st.nloc), np.float32)
     invd[st.part_of, st.loc_of] = 1.0 / dg
-    return dense, oob_vals, torch.as_tensor(invd, device=dev)
+    return dense, oob_vals, torch.as_tensor(invd[st.lo:st.lo + st.nl],
+                                            device=dev)
 
 
 def build_factors(st: BandDDState, Ap_data: np.ndarray) -> BTFactor:
-    """Per-part block-Thomas factors, stacked: Sinv (P, NB, b, b), G
-    (P, NB-1, b, b), s (P, NB*b), built part by part on the maps'
+    """The local parts' block-Thomas factors, stacked: Sinv (nl, NB, b, b),
+    G (nl, NB-1, b, b), s (nl, NB*b), built part by part on the maps'
     device into the stacked tensors."""
     Sinv = G = s = None
-    for p in range(st.ndev):
+    for p in range(st.nl):
         lsel = st.bt_lsel[p]
         vals = np.where(lsel >= 0, Ap_data[np.maximum(lsel, 0)], 1.0)
         f = blocktri.build_factor(st.bt_maps[p], vals, b=st.b, NB=st.NB)
         if Sinv is None:
-            Sinv = f.Sinv.new_empty((st.ndev,) + tuple(f.Sinv.shape))
-            G = f.G.new_empty((st.ndev,) + tuple(f.G.shape))
-            s = f.s.new_empty((st.ndev,) + tuple(f.s.shape))
+            Sinv = f.Sinv.new_empty((st.nl,) + tuple(f.Sinv.shape))
+            G = f.G.new_empty((st.nl,) + tuple(f.G.shape))
+            s = f.s.new_empty((st.nl,) + tuple(f.s.shape))
         Sinv[p], G[p], s[p] = f.Sinv, f.G, f.s
         del f
     return BTFactor(Sinv=Sinv, G=G, s=s)
 
 
 def part_factor(bt: BTFactor, p: int) -> BTFactor:
-    """Part p's factor: contiguous, aligned slices of the stacked one."""
+    """Local part p's factor: contiguous, aligned slices of the stacked
+    one."""
     return BTFactor(Sinv=bt.Sinv[p], G=bt.G[p], s=bt.s[p])
 
 
 def dd_operator(st: BandDDState, dense, oob_vals):
-    """op(x) for (P, nloc) part vectors: K1 on every part's band, plus
-    the sidecar rows against the all-gathered x (one ``index_add_``)."""
-    P, nloc = st.ndev, st.nloc
+    """op(x) for (nl, nloc) local part vectors: K1 on every local part's
+    band, plus the sidecar rows against the all-gathered x (one
+    ``index_add_``; its rows index the local y, its columns the global
+    x)."""
+    P, nloc = st.nl, st.nloc
     bands = [BandMatrix(dense[p], st.shift0, CCHUNK, nloc) for p in range(P)]
     rows = (st.oob_rows
             + nloc * torch.arange(P, device=dense.device)[:, None]).view(-1)
@@ -323,7 +346,7 @@ def dd_operator(st: BandDDState, dense, oob_vals):
     def op(x):
         y = torch.stack([band_matvec(bands[p], x[p])[:nloc]
                          for p in range(P)])
-        xg = comm.all_gather(x)
+        xg = st.comm.all_gather(x)
         return y.view(-1).index_add(0, rows, ovals * xg[cols]).view(P, nloc)
 
     return op
@@ -341,12 +364,14 @@ def dd_preconditioner(bt: BTFactor):
     return prec
 
 
-def _pcg_dd(op, prec, rhs, invd, x0, tol, max_iter: int):
-    """The JAX ``_pcg_dd`` for all parts at once: CG with the per-part
-    factors as preconditioner, stopping on the Jacobi-weighted residual
-    sqrt(r.D^-1.r / res0) <= tol, at ``max_iter``, or after 60
-    iterations without a 1% gain in |z.r|. Returns (x, relative
-    residual, iterations)."""
+def _pcg_dd(op, prec, rhs, invd, x0, tol, max_iter: int,
+            comm=STACKED):
+    """The JAX ``_pcg_dd`` for the local parts at once: CG with the
+    per-part factors as preconditioner, stopping on the Jacobi-weighted
+    residual sqrt(r.D^-1.r / res0) <= tol, at ``max_iter``, or after 60
+    iterations without a 1% gain in |z.r|. Every decision comes from
+    ``comm``'s sums, so the ranks of a group take the same steps.
+    Returns (x, relative residual, iterations)."""
     zero = torch.zeros((), dtype=rhs.dtype, device=rhs.device)
     res0 = comm.pdot(invd * rhs, rhs)
     res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
@@ -381,7 +406,8 @@ def _pcg_dd(op, prec, rhs, invd, x0, tol, max_iter: int):
         st["it"] = st["it"] + active.to(torch.int32)
 
     launched = solver_mod._masked_loop(running, step,
-                                       rhs.device.type == "cuda")
+                                       rhs.device.type == "cuda",
+                                       lockstep=comm.lockstep)
     n_it = int(st["it"])
     solver_mod.MASKED["dd-band"] += launched - n_it
     return st["x"], float(torch.sqrt(st["stop"].abs() / res0)), n_it
@@ -389,9 +415,10 @@ def _pcg_dd(op, prec, rhs, invd, x0, tol, max_iter: int):
 
 def make_dd_pcg(st: BandDDState, max_iter: int = 20000):
     """``solve(dense, oob_vals, bt, rhs, invd, x0, tol) -> (x, relres,
-    iterations)`` on (P, nloc) part tensors."""
+    iterations)`` on (nl, nloc) local part tensors, over ``st.comm``."""
     def solve(dense, oob_vals, bt: BTFactor, rhs, invd, x0, tol):
         return _pcg_dd(dd_operator(st, dense, oob_vals),
-                       dd_preconditioner(bt), rhs, invd, x0, tol, max_iter)
+                       dd_preconditioner(bt), rhs, invd, x0, tol, max_iter,
+                       st.comm)
 
     return solve

@@ -18,9 +18,16 @@ Two engines, chosen per call as in the JAX package:
   ``refresh_factor`` x the first call's; a Schwarz solve that misses the
   tolerance latches the session to Jacobi.
 
-The JAX package runs N parts on N devices. Here the N parts are the
-leading axis of tensors on ONE device (``comm.py``), the card unless the
-caller names another (ROADMAP C.17).
+The JAX package runs N parts on N devices. Here, without a process
+group, the N parts are the leading axis of tensors on ONE device (the
+stacked communicator of ``comm.py``), the card unless the caller names
+another (ROADMAP C.17). With a ``torch.distributed`` process group of N
+ranks as ``device_mesh``, each rank holds its own part on its own card
+(or the host, when the caller asks for ``device="cpu"``) and the parts
+meet through the group (``comm.GroupComm``): every rank runs the same
+host code, every host vector that leaves a rank is all-gathered, so all
+ranks keep identical host state, and each solve ends by checking that
+they do.
 """
 
 from __future__ import annotations
@@ -31,16 +38,31 @@ import torch
 from ..ops import solver as solver_mod
 from ..utils import profiling
 from . import halo, partition as part
+from .comm import STACKED, GroupComm
+
+
+def _is_group(device_mesh) -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and isinstance(device_mesh,
+                                              dist.ProcessGroup)
 
 
 def mesh_device(device_mesh, device=None) -> torch.device:
-    """The one device of a ``device_mesh``: None (the solve's default
-    device, ``device``), a device, or a sequence of devices that are all
-    the same one. A sequence naming several distinct devices would need a
-    communicator over several cards, which the port does not have
-    (ROADMAP C.17)."""
+    """The device of this process's parts: for a process group the
+    rank's card (the current CUDA device), or ``device`` when the caller
+    names one; else the one device of a ``device_mesh``: None (the
+    solve's default device, ``device``), a device, or a sequence of
+    devices that are all the same one. A sequence naming several
+    distinct devices raises: one process holds one device, so several
+    cards take one process per card with a process group (ROADMAP
+    C.17)."""
     if device_mesh is None:
         return solver_mod.resolve_device(device)
+    if _is_group(device_mesh):
+        dev = solver_mod.resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
     if isinstance(device_mesh, (str, torch.device)):
         devs = [device_mesh]
     elif isinstance(device_mesh, (list, tuple)) and device_mesh:
@@ -55,16 +77,18 @@ def mesh_device(device_mesh, device=None) -> torch.device:
                         f"device: {exc}") from None
     if len(distinct) > 1:
         raise NotImplementedError(
-            f"device_mesh names {len(distinct)} distinct devices; the "
-            f"port holds every part on one device and has no communicator "
-            f"over several cards (ROADMAP C.17)")
+            f"device_mesh names {len(distinct)} distinct devices; a "
+            f"process holds its parts on one device: run one process per "
+            f"card and pass their torch.distributed process group "
+            f"(parallel/launch.py; ROADMAP C.17)")
     return solver_mod.resolve_device(distinct.pop())
 
 
 def session(devices, device_mesh=None, device=None, schwarz: bool = True):
     """The models' ``devices=`` / ``device_mesh=``: a DistributedSession
     over ``devices`` parts, or None without ``devices``. A given
-    ``device_mesh`` is checked either way (``mesh_device``)."""
+    ``device_mesh`` is checked either way (``mesh_device``); a process
+    group must have ``devices`` ranks."""
     if device_mesh is not None:
         mesh_device(device_mesh, device)
     if not devices:
@@ -74,14 +98,20 @@ def session(devices, device_mesh=None, device=None, schwarz: bool = True):
 
 
 class DistributedSession:
-    """Per-problem domain-decomposition solver state (one per solve)."""
+    """Per-problem domain-decomposition solver state (one per solve; one
+    per rank under a process group ``mesh``)."""
 
     def __init__(self, ndev: int, mesh=None, schwarz: bool = True,
                  refresh_factor: float = 3.0, device=None):
         self.ndev = int(ndev)
         if self.ndev < 1:
             raise ValueError(f"DistributedSession: {ndev} parts")
+        if _is_group(mesh) and self.ndev != mesh.size():
+            raise ValueError(f"devices={ndev} with a process group of "
+                             f"{mesh.size()} ranks: one part per rank")
         self.device = mesh_device(mesh, device)
+        #: the parts' communicator (``comm.py``)
+        self.comm = GroupComm(mesh) if _is_group(mesh) else STACKED
         self.schwarz = schwarz
         self.refresh_factor = refresh_factor
         self.ps = None            # PartitionedSystem (structure)
@@ -125,7 +155,8 @@ class DistributedSession:
         if self._bdd is None and not self._bdd_disabled:
             with profiling.phase("dd band setup"):
                 st = band_dd.setup_band_dd(At, np.asarray(coords),
-                                           self.ndev, device=self.device)
+                                           self.ndev, device=self.device,
+                                           comm=self.comm)
             if st is None:
                 self._bdd_disabled = True
                 return None
@@ -177,13 +208,13 @@ class DistributedSession:
         def scatter(v):
             out = np.zeros((st.ndev, st.nloc), np.float32)
             out[st.part_of, st.loc_of] = v[st.perm]
-            return torch.as_tensor(out, device=self.device)
+            return torch.as_tensor(self.comm.local(out), device=self.device)
 
         it_total = 0
         self.pass_iters = []
         inner_tol = max(tol, 1e-5)
         metric = None
-        x_zero = torch.zeros((st.ndev, st.nloc), dtype=torch.float32,
+        x_zero = torch.zeros((st.nl, st.nloc), dtype=torch.float32,
                              device=self.device)
         for _ in range(12):
             r = rhs - At @ x
@@ -197,7 +228,8 @@ class DistributedSession:
             it_total += it
             self.pass_iters.append(it)
             dx = np.zeros(n)
-            dx[st.perm] = dx_dev.cpu().numpy().astype(np.float64)[
+            dx_all = self.comm.all_gather(dx_dev).view(st.ndev, st.nloc)
+            dx[st.perm] = dx_all.cpu().numpy().astype(np.float64)[
                 st.part_of, st.loc_of]
             x = x + np.where(fixed, 0.0, dx)
             if rr > 0.9 and it >= 60:
@@ -222,7 +254,7 @@ class DistributedSession:
                                  np.asarray(fixed_vals, np.float64),
                                  coords, self.ndev)
         self._derive_sel(np_blocks)
-        self._mv = halo.make_distributed_matvec(self.ps.hmax)
+        self._mv = halo.make_distributed_matvec(self.ps.hmax, self.comm)
 
     def _derive_sel(self, np_blocks):
         """Reproduce partition()'s element->slot packing so later calls
@@ -261,13 +293,22 @@ class DistributedSession:
         return out
 
     def _to_parts(self, v):
-        return torch.as_tensor(self.ps.to_devices(v), device=self.device)
+        return torch.as_tensor(self.ps.to_devices(v, self.comm),
+                               device=self.device)
 
     # ------------------------------------------------------------------
     def solve(self, blocks, b, fixed_mask, fixed_vals, tol,
               x0=None, coords=None, max_iter: int = 200000):
         """Distributed solve; the contract of ops/solver.solve. Returns
-        (x, relative residual, iterations)."""
+        (x, relative residual, iterations). Under a process group every
+        rank returns the same x, or every rank raises RuntimeError."""
+        out = self._solve(blocks, b, fixed_mask, fixed_vals, tol, x0,
+                          coords, max_iter)
+        self.comm.check_same(out[0], "DistributedSession.solve")
+        return out
+
+    def _solve(self, blocks, b, fixed_mask, fixed_vals, tol, x0, coords,
+               max_iter):
         nreduced = int(np.asarray(b).shape[0])
         if (coords is not None and not self._bdd_disabled
                 and np.shape(coords)[0] == nreduced
@@ -284,20 +325,22 @@ class DistributedSession:
 
         ps = self.ps
         dev = self.device
-        da = halo.device_arrays(ps, device=dev)
+        da = halo.device_arrays(ps, device=dev, comm=self.comm)
         stale = (self._amg is not None and self.first_iters is not None
                  and self.last_iters is not None
                  and self.last_iters
                  > self.refresh_factor * max(self.first_iters, 1))
         if self.schwarz and (self._amg is None or stale):
             from .schwarz import build_global_coarse, build_schwarz_amg
-            self._amg = build_schwarz_amg(ps, dtype=np.float64, device=dev)
+            self._amg = build_schwarz_amg(ps, dtype=np.float64, device=dev,
+                                          comm=self.comm)
             self._coarse = build_global_coarse(ps, device=dev)
             self._solver = None
             self.first_iters = None
         if self._solver is None:
             self._solver = halo.make_distributed_pcg(
-                ps.hmax, max_iter, amg=self._amg, coarse=self._coarse)
+                ps.hmax, max_iter, amg=self._amg, coarse=self._coarse,
+                comm=self.comm)
 
         # assembled diagonal on the host
         dh = np.zeros(nreduced)
@@ -309,7 +352,7 @@ class DistributedSession:
         dh[dh == 0.0] = 1.0
         diag_np = np.ones((ps.ndev, ps.nmax))
         diag_np[ps.dof_dev, ps.dof_slot] = dh
-        diag = torch.as_tensor(diag_np, device=dev)
+        diag = torch.as_tensor(self.comm.local(diag_np), device=dev)
 
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         g_dev = torch.where(da.fixed_mask, da.fixed_vals, zero)
@@ -330,14 +373,15 @@ class DistributedSession:
             self.schwarz = False
             self._amg = None
             self._coarse = None
-            self._solver = halo.make_distributed_pcg(ps.hmax, max_iter)
+            self._solver = halo.make_distributed_pcg(ps.hmax, max_iter,
+                                                     comm=self.comm)
             x_dev, relres, it2 = self._solver(da, rhs, diag, tol, x0_dev)
             it += it2
             self.first_iters = None
         if self.first_iters is None:
             self.first_iters = it
         self.last_iters = it
-        return ps.from_devices(x_dev.cpu().numpy()), relres, it
+        return ps.from_devices(x_dev, self.comm), relres, it
 
     # ------------------------------------------------------------------
     def solve_complex(self, blocks, b, fixed_mask, fixed_vals, tol,
@@ -346,7 +390,8 @@ class DistributedSession:
         (cspars.cpp:822 PBCGSolve semantics, ``halo._pcg_csym_shard``).
         ``blocks`` carry complex ``mat``; circuit Case-2 bordered rows
         are not supported here (their dense coupling spans every slab):
-        callers keep those on the single-device path."""
+        callers keep those on the single-device path. Under a process
+        group every rank returns the same x, or every rank raises."""
         nreduced = int(np.asarray(b).shape[0])
         if self.ps is None:
             struct = [type(b0)(idx=b0.idx, sign=b0.sign,
@@ -370,7 +415,8 @@ class DistributedSession:
             mim_l.append(mim.reshape(D, emax, K, K))
 
         def t(a, dtype=torch.float64):
-            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+            return torch.as_tensor(np.asarray(self.comm.local(a)),
+                                   dtype=dtype, device=dev)
 
         dc = halo.DeviceArraysC(
             blocks_idx=tuple(t(b0[0], torch.int64) for b0 in ps.blocks),
@@ -380,8 +426,8 @@ class DistributedSession:
             fixed_mask=t(ps.fixed_mask, torch.bool),
             valid=t(ps.valid, torch.bool))
         if self._csolver is None:
-            self._csolver = halo.make_distributed_csym_pcg(ps.hmax,
-                                                           max_iter)
+            self._csolver = halo.make_distributed_csym_pcg(
+                ps.hmax, max_iter, comm=self.comm)
 
         # assembled complex diagonal on the host
         dh = np.zeros(nreduced, np.complex128)
@@ -416,6 +462,7 @@ class DistributedSession:
             dc, self._to_parts(rhs.real), self._to_parts(rhs.imag),
             t(dr_), t(di_), tol, self._to_parts(x0c.real),
             self._to_parts(x0c.imag))
-        x = (xr.cpu().numpy() + 1j * xi.cpu().numpy())[
-            ps.dof_dev, ps.dof_slot]
+        x = (ps.from_devices(xr, self.comm)
+             + 1j * ps.from_devices(xi, self.comm))
+        self.comm.check_same(x, "DistributedSession.solve_complex")
         return x, relres, iters

@@ -6,12 +6,13 @@ Each part applies its slab's element blocks to its extended local vector
 boundary strip before the product and returns the halo's contributions
 after it (``comm.ring_shift`` both ways), and reduces dot products over
 the parts (``comm.psum``). The JAX package runs the iteration as one
-``while_loop`` inside ``shard_map``; here every part is one slice of a
-(P, ...) tensor and the loop is the solver's masked host loop
-(``solver._masked_loop``): an iteration enqueued past the stop leaves the
-state unchanged, so the result equals the early exit, and such masked
-iterations are counted in ``solver.MASKED["dd-halo"]`` /
-``["dd-halo-csym"]``.
+``while_loop`` inside ``shard_map``; here the parts a process holds are
+the slices of a (P, ...) tensor (all of them under the stacked
+communicator, the rank's own under a process group: ``comm.py``) and
+the loop is the solver's masked host loop (``solver._masked_loop``): an
+iteration enqueued past the stop leaves the state unchanged, so the
+result equals the early exit, and such masked iterations are counted in
+``solver.MASKED["dd-halo"]`` / ``["dd-halo-csym"]``.
 
 The path is float64, as in the JAX package (its element blocks, the
 Schwarz hierarchy and the coarse solve are f64), on the card too: it is
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops import solver as solver_mod
-from . import comm
+from .comm import STACKED
 from .partition import PartitionedSystem
 
 
@@ -47,14 +48,18 @@ def _t(a, dtype, device):
 
 
 def device_arrays(ps: PartitionedSystem, dtype=torch.float64,
-                  device="cpu") -> DeviceArrays:
+                  device="cpu", comm=STACKED) -> DeviceArrays:
+    """The part tensors of ``comm``'s parts (``comm.local``)."""
+    def t(a, dt):
+        return _t(comm.local(a), dt, device)
+
     return DeviceArrays(
-        blocks_idx=tuple(_t(b[0], torch.int64, device) for b in ps.blocks),
-        blocks_sign=tuple(_t(b[1], dtype, device) for b in ps.blocks),
-        blocks_mat=tuple(_t(b[2], dtype, device) for b in ps.blocks),
-        fixed_mask=_t(ps.fixed_mask, torch.bool, device),
-        fixed_vals=_t(ps.fixed_vals, dtype, device),
-        valid=_t(ps.valid, torch.bool, device))
+        blocks_idx=tuple(t(b[0], torch.int64) for b in ps.blocks),
+        blocks_sign=tuple(t(b[1], dtype) for b in ps.blocks),
+        blocks_mat=tuple(t(b[2], dtype) for b in ps.blocks),
+        fixed_mask=t(ps.fixed_mask, torch.bool),
+        fixed_vals=t(ps.fixed_vals, dtype),
+        valid=t(ps.valid, torch.bool))
 
 
 def _gather(x_ext, idx):
@@ -68,14 +73,14 @@ def _scatter_add(y_ext, idx, vals):
     return y_ext.scatter_add(1, idx.reshape(P, -1), vals.reshape(P, -1))
 
 
-def _with_halo(x_own, hmax: int):
+def _with_halo(x_own, hmax: int, comm):
     """[left neighbour's tail | owned] for every part (part 0's halo 0)."""
     nmax = x_own.shape[-1]
     halo = comm.ring_shift(x_own[..., nmax - hmax:], 1)
     return torch.cat([halo, x_own], dim=-1)
 
 
-def _return_halo(y_ext, hmax: int):
+def _return_halo(y_ext, hmax: int, comm):
     """Owned slots with the halo's contributions added back to their
     owner's tail (right-to-left shift; the last part sends nothing)."""
     nmax = y_ext.shape[-1] - hmax
@@ -84,20 +89,20 @@ def _return_halo(y_ext, hmax: int):
                      dim=-1)
 
 
-def _local_matvec(da: DeviceArrays, x_own, hmax: int):
+def _local_matvec(da: DeviceArrays, x_own, hmax: int, comm):
     """One distributed operator application on owned slots, (P, nmax)."""
-    x_ext = _with_halo(x_own, hmax)
+    x_ext = _with_halo(x_own, hmax, comm)
     y_ext = torch.zeros_like(x_ext)
     for idx, sign, mat in zip(da.blocks_idx, da.blocks_sign, da.blocks_mat):
         xe = sign * _gather(x_ext, idx)
         ye = torch.einsum("pekl,pel->pek", mat, xe)
         y_ext = _scatter_add(y_ext, idx, sign * ye)
-    y_own = _return_halo(y_ext, hmax)
+    y_own = _return_halo(y_ext, hmax, comm)
     return torch.where(da.valid, y_own, torch.zeros_like(y_own))
 
 
 def _pcg_shard(da: DeviceArrays, b, x0, diag, tol, max_iter: int,
-               hmax: int, amg=None, coarse=None):
+               hmax: int, amg=None, coarse=None, comm=STACKED):
     """The JAX ``_pcg_shard`` for all parts at once: Jacobi, the
     additive-Schwarz V-cycle (``amg``, one hierarchy per part, no
     communication) and the global coarse correction (``coarse`` =
@@ -111,7 +116,7 @@ def _pcg_shard(da: DeviceArrays, b, x0, diag, tol, max_iter: int,
     zero = torch.zeros((), dtype=b.dtype, device=b.device)
 
     def op(x):
-        y = _local_matvec(da, torch.where(fixed, zero, x), hmax)
+        y = _local_matvec(da, torch.where(fixed, zero, x), hmax, comm)
         return torch.where(fixed, x, y)
 
     invd = torch.where(da.valid, 1.0 / diag, zero)
@@ -135,11 +140,12 @@ def _pcg_shard(da: DeviceArrays, b, x0, diag, tol, max_iter: int,
         def prec(r):
             # two-level additive Schwarz: a global coarse correction over
             # per-part contiguous aggregates, one all-gather of P*m values
+            # (the replicated coarse solve, then the local parts' rows)
             z = prec_local(r)
             rm = torch.where(fixed | ~da.valid, zero, r)
             rc = torch.nn.functional.pad(rm, (0, m * aggc - nmax)) \
                 .view(P, m, aggc).sum(dim=2)
-            zc = (coarse_inv @ comm.all_gather(rc)).view(P, m)
+            zc = comm.local((coarse_inv @ comm.all_gather(rc)).view(-1, m))
             zfine = zc.repeat_interleave(aggc, dim=1)[:, :nmax]
             return z + torch.where(fixed | ~da.valid, zero, zfine)
 
@@ -177,26 +183,27 @@ def _pcg_shard(da: DeviceArrays, b, x0, diag, tol, max_iter: int,
         st["it"] = st["it"] + active.to(torch.int32)
 
     launched = solver_mod._masked_loop(running, step,
-                                       b.device.type == "cuda")
+                                       b.device.type == "cuda",
+                                       lockstep=comm.lockstep)
     n_it = int(st["it"])
     solver_mod.MASKED["dd-halo"] += launched - n_it
     return st["x"], float(torch.sqrt(st["res"].abs() / res0)), n_it
 
 
 def make_distributed_pcg(hmax: int, max_iter: int = 200000, amg=None,
-                         coarse=None):
+                         coarse=None, comm=STACKED):
     """``solve(da, b, diag, tol, x0) -> (x, relres, iterations)`` on
     (P, nmax) part tensors, with the optional per-part Schwarz hierarchy
     ``amg`` (``schwarz.build_schwarz_amg``) and global coarse solve
     ``coarse`` (``schwarz.build_global_coarse``)."""
     def solve(da: DeviceArrays, b, diag, tol, x0):
         return _pcg_shard(da, b, x0, diag, tol, max_iter, hmax, amg=amg,
-                          coarse=coarse)
+                          coarse=coarse, comm=comm)
 
     return solve
 
 
-def distributed_diag(da: DeviceArrays, hmax: int):
+def distributed_diag(da: DeviceArrays, hmax: int, comm=STACKED):
     """Assembled operator diagonal in part layout (for Jacobi)."""
     P, nmax = da.fixed_mask.shape
     d_ext = torch.zeros((P, hmax + nmax), dtype=da.blocks_mat[0].dtype,
@@ -204,7 +211,7 @@ def distributed_diag(da: DeviceArrays, hmax: int):
     for idx, mat in zip(da.blocks_idx, da.blocks_mat):
         d_ext = _scatter_add(d_ext, idx,
                              torch.diagonal(mat, dim1=-2, dim2=-1))
-    d_own = _return_halo(d_ext, hmax)
+    d_own = _return_halo(d_ext, hmax, comm)
     one = torch.ones_like(d_own)
     d_own = torch.where(da.fixed_mask, one, d_own)
     return torch.where(da.valid, d_own, one)
@@ -222,10 +229,10 @@ class DeviceArraysC(NamedTuple):
     valid: torch.Tensor
 
 
-def _local_matvec_c(dc: DeviceArraysC, xr_own, xi_own, hmax: int):
+def _local_matvec_c(dc: DeviceArraysC, xr_own, xi_own, hmax: int, comm):
     """(Ar + i Ai)(xr + i xi) on owned slots, one halo exchange of the
     stacked (re, im) boundary strip each way."""
-    x_ext = _with_halo(torch.stack([xr_own, xi_own], dim=1), hmax)
+    x_ext = _with_halo(torch.stack([xr_own, xi_own], dim=1), hmax, comm)
     xr_ext, xi_ext = x_ext[:, 0], x_ext[:, 1]
     yr_ext = torch.zeros_like(xr_ext)
     yi_ext = torch.zeros_like(xi_ext)
@@ -239,14 +246,14 @@ def _local_matvec_c(dc: DeviceArraysC, xr_own, xi_own, hmax: int):
               + torch.einsum("pekl,pel->pek", mi, ger))
         yr_ext = _scatter_add(yr_ext, idx, sign * er)
         yi_ext = _scatter_add(yi_ext, idx, sign * ei)
-    y = _return_halo(torch.stack([yr_ext, yi_ext], dim=1), hmax)
+    y = _return_halo(torch.stack([yr_ext, yi_ext], dim=1), hmax, comm)
     zero = torch.zeros_like(y[:, 0])
     return (torch.where(dc.valid, y[:, 0], zero),
             torch.where(dc.valid, y[:, 1], zero))
 
 
 def _pcg_csym_shard(dc: DeviceArraysC, br, bi, x0r, x0i, dr_, di_, tol,
-                    max_iter: int, hmax: int):
+                    max_iter: int, hmax: int, comm=STACKED):
     """Distributed complex-symmetric Jacobi-PCG in the bilinear z.r form
     (the reference's PBCGSolve, cspars.cpp:822) on (re, im) pairs, psum
     reductions; stops on sqrt(|z.r| / res0) <= tol or at ``max_iter``.
@@ -256,7 +263,7 @@ def _pcg_csym_shard(dc: DeviceArraysC, br, bi, x0r, x0i, dr_, di_, tol,
 
     def op(xr, xi):
         yr, yi = _local_matvec_c(dc, torch.where(fixed, zero, xr),
-                                 torch.where(fixed, zero, xi), hmax)
+                                 torch.where(fixed, zero, xi), hmax, comm)
         return torch.where(fixed, xr, yr), torch.where(fixed, xi, yi)
 
     def cdot(ar, ai, br_, bi_):
@@ -312,58 +319,63 @@ def _pcg_csym_shard(dc: DeviceArraysC, br, bi, x0r, x0i, dr_, di_, tol,
         st["it"] = st["it"] + active.to(torch.int32)
 
     launched = solver_mod._masked_loop(running, step,
-                                       br.device.type == "cuda")
+                                       br.device.type == "cuda",
+                                       lockstep=comm.lockstep)
     n_it = int(st["it"])
     solver_mod.MASKED["dd-halo-csym"] += launched - n_it
     rel = float(torch.sqrt(torch.hypot(st["res_r"], st["res_i"]) / res0))
     return st["xr"], st["xi"], rel, n_it
 
 
-def make_distributed_csym_pcg(hmax: int, max_iter: int = 200000):
+def make_distributed_csym_pcg(hmax: int, max_iter: int = 200000,
+                              comm=STACKED):
     """``solve(dc, br, bi, dr_, di_, tol, x0r, x0i) -> (xr, xi, relres,
     iterations)`` on (P, nmax) part tensors."""
     def solve(dc: DeviceArraysC, br, bi, dr_, di_, tol, x0r, x0i):
         return _pcg_csym_shard(dc, br, bi, x0r, x0i, dr_, di_, tol,
-                               max_iter, hmax)
+                               max_iter, hmax, comm)
 
     return solve
 
 
-def make_distributed_matvec(hmax: int):
+def make_distributed_matvec(hmax: int, comm=STACKED):
     """``mv(da, x) -> y`` on (P, nmax) part tensors (the PCG's layout)."""
     def mv(da: DeviceArrays, x):
-        return _local_matvec(da, x, hmax)
+        return _local_matvec(da, x, hmax, comm)
 
     return mv
 
 
 def solve_distributed(ps: PartitionedSystem, b: np.ndarray, tol: float,
                       device=None, x0=None, max_iter: int = 200000,
-                      schwarz: bool = False):
+                      schwarz: bool = False, comm=STACKED):
     """End-to-end distributed solve from a PartitionedSystem on
-    ``device`` (CUDA unless named). ``b`` is in reduced-DOF numbering;
-    Dirichlet values are imposed by projection as in the single-device
-    solve. Returns (x_reduced, relres, iterations)."""
+    ``device`` (CUDA unless named), over ``comm``'s parts. ``b`` is in
+    reduced-DOF numbering; Dirichlet values are imposed by projection as
+    in the single-device solve. Returns (x_reduced, relres,
+    iterations)."""
     dev = solver_mod.resolve_device(device)
-    da = device_arrays(ps, device=dev)
-    diag = distributed_diag(da, ps.hmax)
+    da = device_arrays(ps, device=dev, comm=comm)
+    diag = distributed_diag(da, ps.hmax, comm)
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     g_dev = torch.where(da.fixed_mask, da.fixed_vals, zero)
-    bg = make_distributed_matvec(ps.hmax)(da, g_dev)
-    b_dev = _t(ps.to_devices(np.asarray(b, np.float64)), torch.float64, dev)
+    bg = make_distributed_matvec(ps.hmax, comm)(da, g_dev)
+    b_dev = _t(ps.to_devices(np.asarray(b, np.float64), comm),
+               torch.float64, dev)
     rhs = torch.where(da.fixed_mask, da.fixed_vals, b_dev - bg)
     rhs = torch.where(da.valid, rhs, zero)
     if x0 is None:
         x0_dev = g_dev
     else:
-        x0_dev = _t(ps.to_devices(np.asarray(x0, np.float64)),
+        x0_dev = _t(ps.to_devices(np.asarray(x0, np.float64), comm),
                     torch.float64, dev)
         x0_dev = torch.where(da.fixed_mask, da.fixed_vals, x0_dev)
     amg = coarse = None
     if schwarz:
         from .schwarz import build_global_coarse, build_schwarz_amg
-        amg = build_schwarz_amg(ps, dtype=np.float64, device=dev)
+        amg = build_schwarz_amg(ps, dtype=np.float64, device=dev, comm=comm)
         coarse = build_global_coarse(ps, device=dev)
-    solve = make_distributed_pcg(ps.hmax, max_iter, amg=amg, coarse=coarse)
+    solve = make_distributed_pcg(ps.hmax, max_iter, amg=amg, coarse=coarse,
+                                 comm=comm)
     x_dev, relres, iters = solve(da, rhs, diag, tol, x0_dev)
-    return ps.from_devices(x_dev.cpu().numpy()), relres, iters
+    return ps.from_devices(x_dev, comm), relres, iters

@@ -43,12 +43,18 @@ class PartitionedSystem:
     dof_dev: np.ndarray = field(default=None)
     dof_slot: np.ndarray = field(default=None)
 
-    def to_devices(self, x: np.ndarray) -> np.ndarray:
+    def to_devices(self, x: np.ndarray, comm=None) -> np.ndarray:
+        """Reduced-DOF vector -> (D, nmax) part layout; with a
+        communicator, only the rows its process holds (``comm.local``)."""
         out = np.zeros((self.ndev, self.nmax), x.dtype)
         out[self.dof_dev, self.dof_slot] = x
-        return out
+        return out if comm is None else comm.local(out)
 
-    def from_devices(self, xd: np.ndarray) -> np.ndarray:
+    def from_devices(self, xd, comm=None) -> np.ndarray:
+        """The inverse: a (D, nmax) array, or with a communicator the
+        process's part tensor, gathered through ``comm.all_gather``."""
+        if comm is not None:
+            xd = comm.all_gather(xd).view(self.ndev, self.nmax).cpu()
         return np.asarray(xd)[self.dof_dev, self.dof_slot]
 
 

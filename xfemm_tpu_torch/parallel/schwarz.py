@@ -14,7 +14,10 @@ hierarchies have part-uniform shapes (every part has the same padded
 size ``nmax``, aggregation is uniform and contiguous, the level count is
 forced identical, ELLPACK widths are padded to the per-level maximum
 over parts), so they stack into one ``amg.DeviceAMG`` whose tensors carry
-a leading part axis; ``amg.vcycle`` cycles every part at once.
+a leading part axis; ``amg.vcycle`` cycles every part at once. Every
+process builds every part's host hierarchy (the widths are maxima over
+the parts) and uploads its communicator's parts only (``comm.local``);
+the global coarse inverse is replicated, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from ..ops.amg import (JACOBI_OMEGA, DeviceAMG, DeviceLevel,
                        lambda_max_est, scaled_inv)
+from .comm import STACKED
 from .partition import PartitionedSystem
 
 AGG = 8
@@ -96,14 +100,15 @@ def _ell_pad_rect(Pm: sp.csr_matrix, D: int, dtype):
 
 
 def build_schwarz_amg(ps: PartitionedSystem, dtype=np.float32,
-                      device="cpu") -> DeviceAMG:
-    """Stacked per-part hierarchies: every tensor gains a leading part
-    axis (``omega`` is (P, 1), so it broadcasts over each part's rows)."""
+                      device="cpu", comm=STACKED) -> DeviceAMG:
+    """Stacked per-part hierarchies of ``comm``'s parts: every tensor
+    gains a leading part axis (``omega`` is (P, 1), so it broadcasts over
+    each part's rows)."""
     tdt = torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
 
     def t(a, dt=tdt):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device=device)
+        return torch.as_tensor(np.ascontiguousarray(comm.local(a)),
+                               dtype=dt, device=device)
 
     # host hierarchies with identical level structure
     per_shard: list[list[tuple]] = []
@@ -162,9 +167,11 @@ def build_schwarz_amg(ps: PartitionedSystem, dtype=np.float32,
             omega=t(np.stack(om)[:, None]),
             p_vals=t(np.stack(pv)),
             p_cols=t(np.stack(pc), torch.int64)))
-    cinv = np.stack([scaled_inv(A.toarray()) for A in coarse_mats])
+    cinv = np.stack([scaled_inv(A.toarray())
+                     for A in comm.local(coarse_mats)])
     return DeviceAMG(levels=tuple(dev_levels),
-                     coarse_inv=t(cinv.astype(dtype)))
+                     coarse_inv=torch.as_tensor(cinv.astype(dtype),
+                                                dtype=tdt, device=device))
 
 
 COARSE_AGG_TARGET = 64   # coarse DOFs per shard for the global level
