@@ -97,9 +97,10 @@ Phases (any failure exits non-zero, with no result line):
 3e. heat flow and electrostatics (slice 10), launches counted per path:
    the JAX package's heat230k row (``benchprob.build_heat(230_000)``,
    ~327k nodes, npz mesh cache) cold and warm on the K(T) loop
-   (``newton.run_heat``, at least one step each) and cold on the host
-   chain, each with its regime, host passes, loop dispatches and steps,
-   CG iterations, "device heat" / "device cg" seconds and peak memory;
+   (``newton.run_heat``, at least one step each) and on the host chain,
+   each with its regime, host passes, loop dispatches (each one's
+   steps, CG iterations and seconds), CG iterations, "device heat" /
+   "device cg" seconds, ms per CG iteration and peak memory;
    the loop within 1e-5 of max|T| of the host chain, and a fixed point:
    within 1e-6 of a host ``spsolve`` at its own conductivity; ElecTest.fee
    with its label's MaxArea x ELEC_AREA_SCALE (~250k nodes) cold and
@@ -131,7 +132,9 @@ Phases (any failure exits non-zero, with no result line):
    XFEMM_TPU_COARSE_BT_SMOOTH (the levels that take a coarse factor,
    CG, peak memory; A within 1e-5; the live coarse factor's sweeps
    against the plain versions) (``--dd-only`` runs phase 1 and this
-   phase alone, with its own single-device 250k reference solve);
+   phase alone, with its own single-device 250k reference solve, then
+   warm dd250k solves in turns at two loop-driver windows,
+   ``window_pairs``);
 3g. the domain decomposition over a process group (slice 12), one
    process per part (``parallel/launch.spawn``, four ranks): NCCL with
    a card per rank on a machine with four cards, else gloo with the four
@@ -171,6 +174,14 @@ Phases (any failure exits non-zero, with no result line):
    ``--large-only`` runs phases 1, 2 and 4;
 5. print the ``kernels`` JSON line, the nvidia-smi line and, last,
    ``{"ok": true, "device": {...}}``.
+
+Every path that counts launches also prints the loop driver's accounting
+(``loop_report``: ``ops/loop.py``'s runs, starts, carried and masked
+iterations per engine, and the masked bt_fwd launches) and fails if an
+engine launched more than ``loop.IN_FLIGHT`` masked iterations per
+driver run; the 250k path also times warm host-chain solves in turns at
+the driver's window and at a whole drift-check chunk
+(``window_pairs``).
 
 The random inputs of phase 2 come from ``torch.Generator`` seeded with
 SEED; the problems of the main paths are deterministic.
@@ -662,6 +673,7 @@ class NewtonRecorder:
         self.dev = []           # (name, steps, CG its, res, relax)
         self.ptrs = []          # fine band data_ptr at each scatter step
         self.axi = []           # the axi switch of each device dispatch
+        self.heat_s = []        # host seconds of each run_heat dispatch
         self._events = []       # (start, end) per in-place refresh
 
     def __enter__(self):
@@ -682,8 +694,11 @@ class NewtonRecorder:
             return out
 
         def heat(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.time()
             out = real["run_heat"](*a, **kw)
             res, steps, cg = out[-1].tolist()
+            self.heat_s.append(time.time() - t0)
             self.dev.append(("run_heat", int(steps), int(cg), res, None))
             return out
 
@@ -724,6 +739,21 @@ class NewtonRecorder:
         self.torch.cuda.synchronize()
         return [a.elapsed_time(b) for a, b in self._events]
 
+    def cg_rates(self, profiling) -> str:
+        """"device cg" seconds per CG iteration of the host passes, and the
+        loop's seconds ("device newton" or "device heat") per CG
+        iteration it carried."""
+        host_ms = 1e3 * profiling.phase_seconds("device cg") / max(
+            sum(self.host), 1)
+        out = f"device cg {host_ms:.3f} ms per host CG iteration"
+        loop_cg = sum(d[2] for d in self.dev)
+        if loop_cg:
+            phase = "device heat" if self.heat_s else "device newton"
+            loop_ms = 1e3 * profiling.phase_seconds(phase) / loop_cg
+            out += (f", {phase} {loop_ms:.3f} ms per carried loop CG "
+                    f"iteration")
+        return out
+
     def summary(self, profiling) -> str:
         steps = sum(d[1] for d in self.dev)
         out = (f"host passes {len(self.host)} ({sum(self.host)} CG "
@@ -737,6 +767,60 @@ class NewtonRecorder:
                      else "device newton")
             out += f", {phase} {profiling.phase_seconds(phase):.3f} s"
         return out
+
+
+def reset_counts() -> None:
+    """Set the kernels' launch counts and the loop driver's counts to 0,
+    just before a path is driven."""
+    from xfemm_tpu_torch.ops import kernels, loop
+    kernels.reset_launches()
+    loop.reset()
+
+
+def loop_counts() -> dict:
+    """The loop driver's counts since they were set to 0, per engine that
+    ran: (driver runs, starts, carried iterations, masked iterations)."""
+    from xfemm_tpu_torch.ops import loop
+    return {e: (loop.LOOPS[e], loop.STARTS[e], loop.CARRIED[e],
+                loop.MASKED[e]) for e in loop.ENGINES if loop.LOOPS[e]}
+
+
+#: the engines whose preconditioner runs the sweeps: one bt_apply per
+#: application (bt_pcg; band_dd per part), or per smoothing (band_pcg
+#: with the BTSmoother)
+BT_ENGINES = ("bt", "band", "dd-band")
+
+
+def loop_report(label: str, launches: dict, counts: dict,
+                per_prec: int = 1, exact: bool = False) -> None:
+    """Print a path's loop accounting from ``loop_counts``: the carried
+    CG iterations, the loop starts (preconditioner applications outside
+    the driver: each pass's first and each restart), the driver runs and
+    masked iterations per engine, and the masked bt_fwd launches,
+    launches / ``per_prec`` (bt_fwd launches per preconditioner
+    application) - carried - starts over BT_ENGINES. Fails if an engine
+    launched more than IN_FLIGHT masked iterations per driver run; with
+    ``exact`` also unless the masked bt_fwd launches are the masked
+    iterations of BT_ENGINES."""
+    from xfemm_tpu_torch.ops import loop
+    bt = [counts[e] for e in BT_ENGINES if e in counts]
+    carried = sum(c[2] for c in bt)
+    starts = sum(c[1] for c in bt)
+    masked_its = sum(c[3] for c in bt)
+    masked = launches["bt_fwd"] / per_prec - carried - starts
+    print(f"{label}: loop driver (IN_FLIGHT {loop.IN_FLIGHT}) per engine "
+          f"(runs, starts, carried, masked) {counts}; sweep engines: "
+          f"carried CG iterations {carried}, loop starts {starts}, masked "
+          f"bt_fwd launches {masked:g} (bt_fwd {launches['bt_fwd']} / "
+          f"{per_prec} - carried - starts; masked iterations "
+          f"{masked_its})", flush=True)
+    for e, (runs, _starts, _carried, m) in counts.items():
+        if not 0 <= m <= loop.IN_FLIGHT * runs:
+            fail(f"{label}: {e} launched {m} masked iterations over {runs} "
+                 f"driver runs, above IN_FLIGHT = {loop.IN_FLIGHT} each")
+    if exact and masked != masked_its:
+        fail(f"{label}: {masked:g} masked bt_fwd launches, not the "
+             f"{masked_its} masked iterations")
 
 
 def main_path(torch, nodes: int):
@@ -778,7 +862,7 @@ def solve_twice(torch, prob, mesh, chain: str):
     from xfemm_tpu_torch.utils import profiling
 
     profiling.ENABLED = True
-    kernels.reset_launches()
+    reset_counts()
     sols = []
     for label in ("cold", "warm"):
         profiling.reset()
@@ -790,8 +874,8 @@ def solve_twice(torch, prob, mesh, chain: str):
         sols.append(sol)
         print(f"{chain}, {label} solve: {dt:.3f} s, Newton iterations "
               f"{sol.newton_iterations}, CG iterations {sol.iterations}, "
-              f"residual {sol.residual:.3e}; {rec.summary(profiling)}",
-              flush=True)
+              f"residual {sol.residual:.3e}; {rec.summary(profiling)}; "
+              f"{rec.cg_rates(profiling)}", flush=True)
         print(profiling.report(), flush=True)
         names = {d[0] for d in rec.dev}
         if chain == "device loop" and not (
@@ -801,6 +885,7 @@ def solve_twice(torch, prob, mesh, chain: str):
         if chain == "host chain" and rec.dev:
             fail(f"the host-chain {label} solve called the device loop")
     launches = dict(kernels.LAUNCHES)
+    loop_report(f"250k {chain}", launches, loop_counts(), exact=True)
     profiling.ENABLED = False
     for sol in sols:
         if not sol.residual <= prob.Precision:
@@ -869,6 +954,55 @@ def warm_pairs(torch, prob, mesh, pairs: int = 10) -> None:
         print(f"warm 250k solves in turns, {chain}: "
               f"{', '.join(f'{t:.3f}' for t in ts)} s; median "
               f"{statistics.median(ts):.3f} s", flush=True)
+
+
+def window_pairs(torch, prob, mesh, pairs: int = 5,
+                 devices: int | None = None) -> None:
+    """Warm 250k host-chain solves (with ``devices``: dd250k solves) in
+    turns with the loop driver's window at IN_FLIGHT and at
+    CG_CHECK_EVERY (a whole drift-check chunk in flight): wall time,
+    "device cg" ("dd cg") ms per launched CG iteration (carried +
+    masked + starts) and per carried one, masked iterations, medians.
+    Equal times per launched iteration mean the narrow window keeps the
+    card fed."""
+    from xfemm_tpu_torch.models import magnetostatics
+    from xfemm_tpu_torch.ops import band, loop
+    from xfemm_tpu_torch.utils import profiling
+    label, engine, phase = (("250k host chain", "bt", "device cg")
+                            if devices is None else
+                            ("dd250k", "dd-band", "dd cg"))
+    widths = (loop.IN_FLIGHT, band.CG_CHECK_EVERY)
+    rows = {w: [] for w in widths}
+    os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
+    profiling.ENABLED = True
+    try:
+        for _ in range(pairs):
+            for w in widths:
+                loop.IN_FLIGHT = w
+                loop.reset()
+                profiling.reset()
+                t0 = time.time()
+                magnetostatics.solve(prob, mesh, devices=devices)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                _runs, starts, carried, masked = loop_counts()[engine]
+                cg_ms = 1e3 * profiling.phase_seconds(phase)
+                rows[w].append((wall, cg_ms / (starts + carried + masked),
+                                cg_ms / carried, masked))
+    finally:
+        loop.IN_FLIGHT = widths[0]
+        loop.reset()
+        profiling.ENABLED = False
+        os.environ.pop("XFEMM_TPU_NO_DEVICE_NEWTON", None)
+    for w, rs in rows.items():
+        wall, per_launch, per_carried, masked = (
+            statistics.median(r[i] for r in rs) for i in range(4))
+        print(f"warm {label} in turns, window {w}: wall "
+              f"{', '.join(f'{r[0]:.3f}' for r in rs)} s (median "
+              f"{wall:.3f}); {phase} {per_launch:.4f} ms per launched "
+              f"CG iteration, {per_carried:.4f} ms per carried one; "
+              f"masked iterations {masked:g} (medians of {len(rs)})",
+              flush=True)
 
 
 def sidecar_cost(torch, band, dn) -> None:
@@ -1118,6 +1252,7 @@ def small_path(torch):
     del band, bt, dn
     profile_solve(torch, prob, mesh)
     warm_pairs(torch, prob, mesh)
+    window_pairs(torch, prob, mesh)
     host_launches = host_chain(torch, prob, mesh, sols)
     hierarchy_cost(torch, mesh)
     small_reference(torch, 10_000)
@@ -1259,14 +1394,12 @@ def regime_solves(torch, prob, mesh, hbm, label, A_ref):
     to ``A_ref`` (the default solve), and checks residual and distance.
     Returns (launches, the two recorders, session)."""
     from xfemm_tpu_torch.models import magnetostatics
-    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.ops import kernels
     from xfemm_tpu_torch.utils import profiling
 
     clear_solver_caches(torch)
     profiling.ENABLED = True
-    kernels.reset_launches()
-    for k in solver.MASKED:
-        solver.MASKED[k] = 0
+    reset_counts()
     recs = []
     try:
         for phase in ("cold", "warm"):
@@ -1296,8 +1429,8 @@ def regime_solves(torch, prob, mesh, hbm, label, A_ref):
     finally:
         profiling.ENABLED = False
     launches = dict(kernels.LAUNCHES)
-    print(f"{label}: launches over both solves {launches}; masked "
-          f"iterations {dict(solver.MASKED)}", flush=True)
+    print(f"{label}: launches over both solves {launches}", flush=True)
+    loop_report(label, launches, loop_counts())
     return launches, recs, session_of("cuda")
 
 
@@ -1639,7 +1772,7 @@ def prevsoln_path(torch, mesh):
     from xfemm_tpu_torch.ops import kernels
 
     clear_solver_caches(torch)
-    kernels.reset_launches()
+    reset_counts()
     path = os.path.join(HERE, ".bench_cache", "prevsoln_250k.ans")
     os.makedirs(os.path.dirname(path), exist_ok=True)
     t0 = time.time()
@@ -1675,6 +1808,7 @@ def prevsoln_path(torch, mesh):
     os.remove(path)
     launches = dict(kernels.LAUNCHES)
     print(f"PrevSoln 250k launches: {launches}", flush=True)
+    loop_report("PrevSoln 250k", launches, loop_counts())
     clear_solver_caches(torch)
     return launches
 
@@ -1764,7 +1898,7 @@ def surfaces_torque(torch):
     clear_solver_caches(torch)
     os.makedirs(os.path.join(HERE, ".bench_cache"), exist_ok=True)
     out = {}
-    kernels.reset_launches()
+    reset_counts()
     tq40 = None
     for deg in range(0, 100, 10):
         before = sum(kernels.LAUNCHES.values())
@@ -1783,6 +1917,8 @@ def surfaces_torque(torch):
         if deg == 40:
             tq40 = tq
     out["TorqueBenchmark verbs"] = dict(kernels.LAUNCHES)
+    loop_report("TorqueBenchmark verbs", out["TorqueBenchmark verbs"],
+                loop_counts())
     cpu = femm_torque(femm, 40, device="cpu",
                       hbm_bytes=torch.cuda.mem_get_info()[1])
     print(f"TorqueBenchmark 40 deg: |card - CPU path| torque "
@@ -2494,7 +2630,9 @@ def heat_elec_solve(torch, prob, mesh, name, label, keep=False):
           f"CG iterations {sol.iterations}; host passes {len(rec.host)} "
           f"({sum(rec.host)} CG iterations), run_heat dispatches "
           f"{len(heat)} ({sum(d[1] for d in heat)} steps, "
-          f"{sum(d[2] for d in heat)} CG iterations); device heat "
+          f"{sum(d[2] for d in heat)} CG iterations; each (steps, CG, s) "
+          f"{[(d[1], d[2], round(t, 3)) for d, t in zip(heat, rec.heat_s)]}"
+          f"); {rec.cg_rates(profiling)}; device heat "
           f"{profiling.phase_seconds('device heat'):.3f} s, device cg "
           f"{profiling.phase_seconds('device cg'):.3f} s; peak device "
           f"memory {peak / 1e9:.2f} GB; regime: {band_regime(ent)}",
@@ -2513,8 +2651,8 @@ def heat_230k(torch) -> dict:
     230_000)``: a heated cylinder with a 5-point K(T) curve in a box at
     300 K, Precision 1e-8), meshed by the port's mesher (npz cache), a
     cold and a warm solve on the default path, which must run the K(T)
-    loop (``newton.run_heat``, at least one step each), and one cold
-    solve on the host chain (``XFEMM_TPU_NO_DEVICE_NEWTON=1``). The
+    loop (``newton.run_heat``, at least one step each), and a cold and
+    a warm solve on the host chain (``XFEMM_TPU_NO_DEVICE_NEWTON=1``). The
     loop's T within 1e-5 of max|T| of the host chain's, and a fixed point:
     within 1e-6 of max|T| of a host ``spsolve`` of the system assembled
     at its own conductivity (``heatflow.system``). The loop's cached band
@@ -2540,9 +2678,8 @@ def heat_230k(torch) -> dict:
             if chain == "host chain":
                 clear_solver_caches(torch)
                 os.environ["XFEMM_TPU_NO_DEVICE_NEWTON"] = "1"
-            kernels.reset_launches()
-            for label in (("cold", "warm") if chain == "device loop"
-                          else ("cold",)):
+            reset_counts()
+            for label in ("cold", "warm"):
                 sol, rec = heat_elec_solve(torch, prob, mesh,
                                            f"heat230k {chain}", label)
                 sols.setdefault(chain, []).append(sol)
@@ -2555,6 +2692,7 @@ def heat_230k(torch) -> dict:
                 else "heat230k host chain"
             out[key] = dict(kernels.LAUNCHES)
             print(f"{key} launches: {out[key]}", flush=True)
+            loop_report(key, out[key], loop_counts(), exact=True)
             if chain == "device loop":
                 (ent,) = solver._BAND_CACHE.values()
                 check_live_hierarchy(torch, "heat230k", ent["band_amg"],
@@ -2620,7 +2758,7 @@ def elec_250k(torch) -> dict:
           f"{mesh.num_nodes} nodes, {mesh.num_elements} elements (meshed "
           f"in {time.time() - t0:.1f} s incl. cache)", flush=True)
     profiling.ENABLED = True
-    kernels.reset_launches()
+    reset_counts()
     sols, recs = [], []
     try:
         for label in ("cold", "warm"):
@@ -2634,6 +2772,7 @@ def elec_250k(torch) -> dict:
         profiling.ENABLED = False
     launches = dict(kernels.LAUNCHES)
     print(f"elec250k launches: {launches}", flush=True)
+    loop_report("elec250k", launches, loop_counts(), exact=True)
     (ent,) = solver._BAND_CACHE.values()
     check_live_hierarchy(torch, "elec250k", ent["band_amg"], ent["bt"])
     (system,) = recs[0].systems
@@ -2917,14 +3056,12 @@ def dd_250k(torch, prob, mesh, A_ref):
     import numpy as np
 
     from xfemm_tpu_torch.models import magnetostatics
-    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.ops import kernels
     from xfemm_tpu_torch.utils import profiling
 
     clear_solver_caches(torch)
     profiling.ENABLED = True
-    kernels.reset_launches()
-    for k in solver.MASKED:
-        solver.MASKED[k] = 0
+    reset_counts()
     first = None
     try:
         for label in ("cold", "warm"):
@@ -2965,8 +3102,9 @@ def dd_250k(torch, prob, mesh, A_ref):
     finally:
         profiling.ENABLED = False
     launches = dict(kernels.LAUNCHES)
-    print(f"dd250k launches over both solves {launches}; masked "
-          f"iterations {dict(solver.MASKED)}", flush=True)
+    print(f"dd250k launches over both solves {launches}", flush=True)
+    loop_report("dd250k", launches, loop_counts(), per_prec=DD_PARTS,
+                exact=True)
     for name in ("band_mv", "bt_fwd", "bt_qbwd"):
         if not (launches[name] > 0 and launches[name] % DD_PARTS == 0):
             fail(f"dd250k launched {name} {launches[name]} times, not a "
@@ -3358,10 +3496,8 @@ def dist_rank(group, device, A_dd):
     prob = benchprob.build(NODES)
     mesh = get_mesh(prob, NODES)
     out = {"rank": rank, "device": str(device), "solves": []}
-    for k in solver.MASKED:
-        solver.MASKED[k] = 0
     profiling.ENABLED = True
-    kernels.reset_launches()
+    reset_counts()
     first = sess = None
     for label in ("cold", "warm"):
         profiling.reset()
@@ -3391,7 +3527,7 @@ def dist_rank(group, device, A_dd):
             first = (rec.systems[0], rec.coords[0])
     profiling.ENABLED = False
     out["launches"] = dict(kernels.LAUNCHES)
-    out["masked"] = dict(solver.MASKED)
+    out["loops"] = loop_counts()
     if rank == 0:
         check_dd_live(torch, f"dist250k rank {rank}", sess)
     out["comm_ms"] = comm_costs(torch, group, sess.comm, sess._bdd.nloc,
@@ -3498,13 +3634,16 @@ def dist_path(torch) -> dict:
         same(lambda r: r["solves"][i]["cg"], f"{label} CG counts")
     for r in res:
         print(f"dist250k rank {r['rank']} launches over both solves "
-              f"{r['launches']}; masked iterations {r['masked']}; "
-              f"communicator ms per call: all_gather of a part vector "
-              f"{r['comm_ms']['all_gather']:.4f}, psum of a scalar "
-              f"{r['comm_ms']['psum']:.4f}", flush=True)
+              f"{r['launches']}; communicator ms per call: all_gather of a "
+              f"part vector {r['comm_ms']['all_gather']:.4f}, psum of a "
+              f"scalar {r['comm_ms']['psum']:.4f}", flush=True)
+        loop_report(f"dist250k rank {r['rank']}", r["launches"],
+                    r["loops"], exact=True)
         for name in ("band_mv", "bt_fwd", "bt_qbwd"):
             if not r["launches"][name] > 0:
                 fail(f"dist250k: rank {r['rank']} never launched {name}")
+    same(lambda r: repr(r["loops"]), "loop driver counts (the window "
+         "stops every rank at the same iteration)")
     launches = {k: sum(r["launches"][k] for r in res)
                 for k in res[0]["launches"]}
 
@@ -3571,7 +3710,7 @@ def large_path(torch, nodes: int):
     profiling.reset()
     solver.TRACE = True           # one line per band CG pass
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
+    reset_counts()
     os.environ["XFEMM_TPU_NEWTON_DEBUG"] = "1"   # one line per iteration
     try:
         with NewtonRecorder(torch) as rec:
@@ -3629,6 +3768,9 @@ def large_path(torch, nodes: int):
           f"{type(bt).__name__} b={b} NB={NB} "
           f"{None if bt is None else str(bt.Sinv.dtype)[6:]}", flush=True)
     print(f"large path launches: {launches}", flush=True)
+    # the BTSmoother runs before and after the fine level's coarse
+    # correction: two bt_apply per V-cycle
+    loop_report("4.47M", launches, loop_counts(), per_prec=2)
     refresh = rec.refresh_ms()
     band_ptr = lv0.A.dense.data_ptr()
     print(f"in-place band refresh (newton._scatter_refresh) per step: "
@@ -4030,6 +4172,7 @@ def main() -> None:
         clear_solver_caches(torch)
         if args.dd_only:
             dd_paths(torch, mesh, A_ref)
+            window_pairs(torch, prob, mesh, devices=DD_PARTS)
         else:
             dd_250k(torch, prob, mesh, A_ref)
             dist_path(torch)

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from xfemm_tpu.ops import amg as jamg
 from xfemm_tpu.ops import solver as jsolver
 from xfemm_tpu_torch.ops import amg as tamg
+from xfemm_tpu_torch.ops import loop as tloop
 from xfemm_tpu_torch.ops import solver as tsolver
 
 torch.set_num_threads(1)
@@ -113,6 +114,7 @@ def test_pcg_amg_matches_jax():
         jd, jnp.asarray(ell.vals), jnp.asarray(ell.cols), jnp.asarray(b),
         jnp.asarray(1e-5, jnp.float32), jnp.zeros(n, jnp.float32), 500)
     td = tamg.to_device(levels, np.float32, "cpu")
+    masked0 = tsolver.MASKED["ell-amg"]
     xt, rt, itt = tsolver._pcg_amg_impl(
         td, torch.as_tensor(ell.vals), torch.as_tensor(ell.cols).long(),
         torch.as_tensor(b), 1e-5, torch.zeros(n), 500)
@@ -120,5 +122,6 @@ def test_pcg_amg_matches_jax():
     assert abs(itt - int(itj)) <= 2, (itt, int(itj))
     assert np.linalg.norm(xt.numpy() - xj) <= 1e-4 * np.linalg.norm(xj)
     assert rt <= 1e-5 and float(rj) <= 1e-5
-    # the engine checks every iteration on the CPU: nothing was masked
-    assert tsolver.MASKED["ell-amg"] == 0
+    # the loop driver reads each flag IN_FLIGHT iterations late on the
+    # CPU as on the card: at most IN_FLIGHT masked iterations
+    assert 0 <= tsolver.MASKED["ell-amg"] - masked0 <= tloop.IN_FLIGHT

@@ -34,6 +34,7 @@ from xfemm_tpu_torch.geometry import femfile as tfemfile
 from xfemm_tpu_torch.io import ansfile as tans
 from xfemm_tpu_torch.mesh.meshdata import read_mesh_files as tread_mesh
 from xfemm_tpu_torch.ops import band as tband
+from xfemm_tpu_torch.ops import loop as tloop
 from xfemm_tpu_torch.ops import solver as tsolver
 
 from test_torch_axisymmetric import cpu_only  # noqa: F401  (fixture)
@@ -208,7 +209,8 @@ def test_pcg_csym_pairs_matches_jax(captured):
     tx = tsolver._pcg_csym_pairs(tblocks, f32(rs.real), f32(rs.imag),
                                  f32(diag.real), f32(diag.imag),
                                  torch.as_tensor(fixed), 1e-5, 20000)
-    assert tsolver.MASKED["csym-pairs"] == before      # none on the CPU
+    # read IN_FLIGHT iterations late, on the CPU as on the card
+    assert 0 <= tsolver.MASKED["csym-pairs"] - before <= tloop.IN_FLIGHT
     assert abs(tx[3] - int(jx[3])) <= 0.1 * int(jx[3]) and tx[2] <= 1e-5
     assert tx[3] > 100
     close(tx[0], jx[0])

@@ -34,6 +34,7 @@ from xfemm_tpu_torch.mesh import mesher as tmesher
 from xfemm_tpu_torch.models import benchprob as tbench
 from xfemm_tpu_torch.models import magnetostatics as tmag
 from xfemm_tpu_torch.ops import assembly as tassembly
+from xfemm_tpu_torch.ops import loop as tloop
 from xfemm_tpu_torch.parallel import comm, launch, rankjobs
 
 # several worker processes on a few cores: one torch thread each
@@ -165,6 +166,24 @@ def test_halo_pcgs_ranks_match_stacked(name):
     assert rel <= TOL and rels <= TOL
     _close(x, xs, 1e-12)
     assert it == its
+
+
+def test_ranks_stop_together_under_the_window():
+    """The loop driver's window over four ranks: every rank runs the same
+    driver runs and stops at the same iteration with the same masked
+    count (at most IN_FLIGHT per run) in every engine, as the stacked
+    path does, and each solver's x is the stacked path's bit for bit."""
+    res, want = _ranks_solves()
+    counts = res[0]["loops"]
+    assert set(counts) == {"dd-band", "dd-halo", "dd-halo-csym"}
+    for r in res:
+        assert r["loops"] == counts
+    assert counts == want["loops"]
+    for runs, _carried, masked in counts.values():
+        assert 0 <= masked <= tloop.IN_FLIGHT * runs
+    for name in ("band_dd", "jacobi", "schwarz", "csym"):
+        assert np.array_equal(res[0][name][0], want[name][0]), name
+        assert res[0][name][1:] == want[name][1:], name
 
 
 # ------------------------- whole solves ------------------------------ #

@@ -31,6 +31,7 @@ from xfemm_tpu_torch.mesh.meshdata import read_mesh_files as tread_mesh
 from xfemm_tpu_torch.models import benchprob as tbench
 from xfemm_tpu_torch.models import magnetostatics as tmag
 from xfemm_tpu_torch.ops import band as tband
+from xfemm_tpu_torch.ops import loop as tloop
 from xfemm_tpu_torch.ops import solver as tsolver
 
 torch.set_num_threads(1)
@@ -98,6 +99,7 @@ def test_pcg_impl_matches_jax():
         jb, jnp.asarray(b), jnp.asarray(diag), jnp.asarray(fixed),
         jnp.asarray(1e-5, jnp.float32), jnp.zeros(n, jnp.float32), 4000)
     tb = tsolver._to_device_blocks(blocks, torch.float32, "cpu")
+    masked0 = tsolver.MASKED["jacobi"]
     xt, rt, itt = tsolver._pcg_impl(
         tb, torch.as_tensor(b), torch.as_tensor(diag),
         torch.as_tensor(fixed), 1e-5, torch.zeros(n), 4000)
@@ -105,7 +107,7 @@ def test_pcg_impl_matches_jax():
     assert abs(itt - int(itj)) <= 2, (itt, int(itj))
     assert np.linalg.norm(xt.numpy() - xj) <= 1e-4 * np.linalg.norm(xj)
     assert rt <= 1e-5 and float(rj) <= 1e-5
-    assert tsolver.MASKED["jacobi"] == 0
+    assert 0 <= tsolver.MASKED["jacobi"] - masked0 <= tloop.IN_FLIGHT
 
 
 def _check_golden(fixtures, mesh, A):

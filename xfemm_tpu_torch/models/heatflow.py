@@ -178,12 +178,14 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     tris = mesh.elements
     N = mesh.num_nodes
     T = mesh.num_elements
-    lbl_bt = np.array([l.BlockType for l in labels], np.int64)
-    blk = lbl_bt[mesh.element_labels]
+    with profiling.phase("heat element properties"):
+        lbl_bt = np.array([l.BlockType for l in labels], np.int64)
+        blk = lbl_bt[mesh.element_labels]
 
-    node_pp, node_cond, edge_bdry, edge_cond = decode_markers(mesh)
-    ridx, rsign, nred, cond_dof = conductor_prolongation(
-        N, mesh.pbc_pairs, node_cond, conductors)
+    with profiling.phase("heat marker decoding"):
+        node_pp, node_cond, edge_bdry, edge_cond = decode_markers(mesh)
+        ridx, rsign, nred, cond_dof = conductor_prolongation(
+            N, mesh.pbc_pairs, node_cond, conductors)
 
     geom = assembly.tri_geometry(xy, tris)
     area = np.asarray(geom.area)
@@ -254,12 +256,13 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     dof_coords = np.zeros((nred, 2))
     dof_coords[ridx] = xy
 
-    mat_npts = np.array([m.npts for m in mats], np.int64)
-    mat_kt = np.array([m.Kt for m in mats])
-    mat_qv = np.array([m.qv for m in mats])
-    nl_el = mat_npts[blk] > 0
-    Kt = mat_kt[blk]
-    qv = mat_qv[blk]
+    with profiling.phase("heat element properties"):
+        mat_npts = np.array([m.npts for m in mats], np.int64)
+        mat_kt = np.array([m.Kt for m in mats])
+        mat_qv = np.array([m.qv for m in mats])
+        nl_el = mat_npts[blk] > 0
+        Kt = mat_kt[blk]
+        qv = mat_qv[blk]
     has_rad = any(problem.lineproplist[bi].BdryFormat == 3
                   for _a, _b, bi, _m in bdry_edges)
     nonlinear = bool(nl_el.any()) or has_rad
@@ -455,8 +458,9 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         su = hit[1]
         _HEAT_SETUP_CACHE.move_to_end(ckey)
     else:
-        su = _setup_static(problem, mesh, labels, mats, conductors,
-                           units, axi, depth)
+        with profiling.phase("heat static setup"):
+            su = _setup_static(problem, mesh, labels, mats, conductors,
+                               units, axi, depth)
         if fp[0] is not None:
             _HEAT_SETUP_CACHE[ckey] = (fp, su)
             while len(_HEAT_SETUP_CACHE) > _HEAT_SETUP_CACHE_MAX:
@@ -494,7 +498,8 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
             dev_runs += 1
             Vo = V[ridx] * rsign
             continue
-        blocks, b = system(problem, su, Vo, Tp)
+        with profiling.phase("heat assembly"):
+            blocks, b = system(problem, su, Vo, Tp)
 
         # inexact forcing: early successive-substitution iterations only
         # need to out-resolve the current outer error; acceptance always
@@ -544,8 +549,9 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         if (it == 0 and dev_heat is None and not su.has_rad
                 and dsess is None
                 and not os.environ.get("XFEMM_TPU_NO_DEVICE_NEWTON")):
-            dev_heat = _setup_device_heat(problem, su, blocks, b, dev,
-                                          hbm_bytes)
+            with profiling.phase("heat loop setup"):
+                dev_heat = _setup_device_heat(problem, su, blocks, b, dev,
+                                              hbm_bytes)
             su.dev_heat = (tp_key, dev_heat)
 
     Tn = V[ridx] * rsign
@@ -553,21 +559,22 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     # conductor results: solved T and total flux (ChargeOnConductor,
     # hsolver.cpp:987-1042: gradient of the conductor indicator weighted
     # by the flux density, integrated over adjacent elements)
-    cond_V = np.zeros(len(conductors))
-    cond_q = np.zeros(len(conductors))
-    for ci, cond in enumerate(conductors):
-        if cond.CircType == 0:
-            cond_q[ci] = cond.q
-            if su.cond_dof[ci] >= 0:
-                cond_V[ci] = V[su.cond_dof[ci]]
-        else:
-            cond_V[ci] = cond.V
-            cond_q[ci] = _charge_on_conductor(
-                ci, su.node_cond, su.xy, su.tris, su.blk, mats, Tn, axi,
-                depth)
+    with profiling.phase("heat conductor results"):
+        cond_V = np.zeros(len(conductors))
+        cond_q = np.zeros(len(conductors))
+        for ci, cond in enumerate(conductors):
+            if cond.CircType == 0:
+                cond_q[ci] = cond.q
+                if su.cond_dof[ci] >= 0:
+                    cond_V[ci] = V[su.cond_dof[ci]]
+            else:
+                cond_V[ci] = cond.V
+                cond_q[ci] = _charge_on_conductor(
+                    ci, su.node_cond, su.xy, su.tris, su.blk, mats, Tn, axi,
+                    depth)
 
-    node_Q = compute_node_Q(problem, mesh, su.node_pp, su.node_cond,
-                            su.edge_bdry)
+        node_Q = compute_node_Q(problem, mesh, su.node_pp, su.node_cond,
+                                su.edge_bdry)
     return HeatSolution(problem=problem, mesh=mesh, T=Tn,
                         node_Q=node_Q, conductor_V=cond_V,
                         conductor_q=cond_q, iterations=iters_total,

@@ -35,7 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from . import kernels
+from . import kernels, loop
 from .amg import JACOBI_OMEGA, lambda_max_est
 
 
@@ -855,7 +855,8 @@ FLOOR_EXIT = True
 
 
 def _chunked_pcg(op, prec, invd, b, tol, x0, max_iter,
-                 stall_window: int, check_every: int = CG_CHECK_EVERY):
+                 stall_window: int, check_every: int = CG_CHECK_EVERY,
+                 engine: str = "band"):
     """Preconditioned CG with drift-guarded chunks (the JAX package's
     band._chunked_pcg, plus one exit).
 
@@ -870,14 +871,12 @@ def _chunked_pcg(op, prec, invd, b, tol, x0, max_iter,
     ``(x, true relative metric, iterations)`` as host numbers for the
     last two.
 
-    The JAX ``while_loop`` becomes a host loop over device tensors. The
-    stopping state stays on the device: an iteration past the stopping
-    point is masked (its step scale is zero, so x, r, p and the
-    counters do not move), which keeps the result identical to the
-    early exit. The host reads the scalars with one blocking copy per
-    check; between checks it only polls, without blocking, the CUDA
-    event behind each iteration's "still active" flag and ends the
-    chunk once the device has reported it finished."""
+    The JAX ``while_loop`` becomes a host loop over device tensors: each
+    chunk's recurrence iterations run through ``loop.masked_loop`` (an
+    iteration past the stopping point is masked: its step scale is
+    zero, so x, r, p and the counters do not move, which keeps the
+    result identical to the early exit), counted under ``engine``. The
+    host reads the chunk-end check with one blocking copy."""
     dev = b.device
     f32 = torch.float32
     x0 = x0.to(f32)
@@ -887,57 +886,41 @@ def _chunked_pcg(op, prec, invd, b, tol, x0, max_iter,
 
     r = b - op(x0)
     z = prec(r)
-    p = z
     res = torch.dot(z, r)
-    stop = torch.dot(invd * r, r)
-    x = x0.clone()
-    it = torch.zeros((), dtype=torch.int32, device=dev)
-    best = res.abs()
-    since = torch.zeros((), dtype=torch.int32, device=dev)
+    st = dict(x=x0.clone(), r=r, p=z, res=res, stop=torch.dot(invd * r, r),
+              it=torch.zeros((), dtype=torch.int32, device=dev),
+              best=res.abs(),
+              since=torch.zeros((), dtype=torch.int32, device=dev))
     stop_prev = torch.full((), float("inf"), dtype=f32, device=dev)
-    cuda = dev.type == "cuda"
-    if cuda:
-        flags = torch.empty(check_every, dtype=torch.bool, pin_memory=True)
 
+    def running():
+        return ((torch.sqrt(st["stop"].abs() / res0) > tol)
+                & (st["it"] < max_iter) & (st["since"] < stall_window))
+
+    def step(active):
+        res, p = st["res"], st["p"]
+        u = op(p)
+        delta = torch.where(active, res / torch.dot(p, u),
+                            torch.zeros_like(res))
+        st["x"] = st["x"] + delta * p
+        r = st["r"] = st["r"] - delta * u
+        z = prec(r)
+        res_new = torch.dot(z, r)
+        st["stop"] = torch.where(active, torch.dot(invd * r, r), st["stop"])
+        st["p"] = torch.where(active, z + (res_new / res) * p, p)
+        improved = active & (res_new.abs() < 0.99 * st["best"])
+        st["best"] = torch.where(improved, res_new.abs(), st["best"])
+        st["since"] = torch.where(active & ~improved, st["since"] + 1,
+                                  torch.where(improved, 0, st["since"]))
+        st["res"] = torch.where(active, res_new, res)
+        st["it"] = st["it"] + active.to(torch.int32)
+
+    launched, starts = 0, 1
     while True:
-        pending = []
-        for j in range(check_every):
-            active = ((torch.sqrt(stop.abs() / res0) > tol)
-                      & (it < max_iter) & (since < stall_window))
-            if cuda:
-                flags[j].copy_(active, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record()
-                pending.append((j, ev))
-            elif not bool(active):
-                break
-            u = op(p)
-            delta = torch.where(active, res / torch.dot(p, u),
-                                torch.zeros_like(res))
-            x = x + delta * p
-            r = r - delta * u
-            z = prec(r)
-            res_new = torch.dot(z, r)
-            stop = torch.where(active, torch.dot(invd * r, r), stop)
-            p = torch.where(active, z + (res_new / res) * p, p)
-            improved = active & (res_new.abs() < 0.99 * best)
-            best = torch.where(improved, res_new.abs(), best)
-            since = torch.where(active & ~improved, since + 1,
-                                torch.where(improved, 0, since))
-            res = torch.where(active, res_new, res)
-            it = it + active.to(torch.int32)
-            if cuda:
-                done_early = False
-                while pending and pending[0][1].query():
-                    k, _ = pending.pop(0)
-                    if not bool(flags[k]):
-                        done_early = True
-                        break
-                if done_early:
-                    break
-
+        launched += loop.masked_loop(running, step, engine, check_every)
+        stop, it, since = st["stop"], st["it"], st["since"]
         rec_ok = torch.sqrt(stop.abs() / res0) <= tol
-        rt = b - op(x)
+        rt = b - op(st["x"])
         stop_t = torch.dot(invd * rt, rt)
         true_ok = torch.sqrt(stop_t / res0) <= tol
         stagnant = stop_t > 0.25 * stop_prev
@@ -956,14 +939,18 @@ def _chunked_pcg(op, prec, invd, b, tol, x0, max_iter,
         if bool(flags_h[0]):
             break
         if bool(flags_h[1]):
-            # the whole carried stopping state resets to the truth
-            r = rt
-            p = prec(rt)
-            res = torch.dot(p, rt)
-            stop = stop_t
-            best = res.abs()
-            since = torch.zeros_like(since)
-    return x, float(torch.sqrt(stop_t / res0)), int(it)
+            # the whole carried stopping state resets to the truth; the
+            # next chunk's window starts from it
+            st["r"] = rt
+            st["p"] = prec(rt)
+            st["res"] = torch.dot(st["p"], rt)
+            st["stop"] = stop_t
+            st["best"] = st["res"].abs()
+            st["since"] = torch.zeros_like(since)
+            starts += 1
+    n_it = int(st["it"])
+    loop.tally(engine, launched, n_it, starts)
+    return st["x"], float(torch.sqrt(stop_t / res0)), n_it
 
 
 #: Chebyshev smoothing degree for the band V-cycle; degree 1 is plain
@@ -1086,7 +1073,7 @@ def band_pcg(amg: BandAMG, b: torch.Tensor, tol, x0: torch.Tensor,
         return band_vcycle(amg, r, bt=bt)
 
     return _chunked_pcg(op, prec, lv0.invd, b, tol, x0, max_iter,
-                        stall_window)
+                        stall_window, engine="band")
 
 
 def band_fgmres(amg: BandAMG, b: torch.Tensor, m: int = 16):

@@ -371,4 +371,4 @@ def bt_pcg(Aop: BandMatrix, dvec, invd, bt: BTFactor, rhs, tol, x0,
         return bt_apply(bt, r)
 
     return _chunked_pcg(op, prec, invd, rhs, tol, x0, max_iter,
-                        stall_window)
+                        stall_window, engine="bt")

@@ -42,6 +42,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from . import loop
+
 #: print one line per band CG pass (engine, iterations, host metric
 #: before and after), as the JAX package's XFEMM_TPU_SOLVE_TRACE
 TRACE = False
@@ -152,58 +154,10 @@ def _to_device_blocks(blocks, dtype, device):
         for b in blocks)
 
 
-#: iterations the host enqueues between blocking reads of the stopping
-#: state in the Jacobi and ELL-AMG loops (between reads it only polls
-#: the CUDA event behind each iteration's "still active" flag)
-CHECK_EVERY = 16
 #: masked iterations launched past each engine's stop, summed over
-#: passes: the host enqueued them before it saw the device finish. They
-#: do not change the result; on the CPU there are none
-MASKED = {"ell-amg": 0, "jacobi": 0, "csym-pairs": 0, "band-csym": 0,
-          "dd-halo": 0, "dd-halo-csym": 0, "dd-band": 0}
-
-
-def _masked_loop(running, step, cuda: bool, lockstep: bool = False) -> int:
-    """Drive a device-side loop from the host: ``running()`` is the
-    device's "still active" flag, ``step(active)`` one iteration that
-    leaves the state unchanged where ``active`` is False. On the card
-    the host enqueues iterations ahead, reads the state once per
-    CHECK_EVERY iterations and polls the CUDA event behind each
-    iteration's flag, ending as soon as one reports finished; on the
-    CPU it checks every iteration. ``lockstep`` (the ranks of a process
-    group, whose steps hold collectives: each must launch the same
-    iterations) drops the polls, which end where the card happens to
-    be, and reads the state only once per CHECK_EVERY iterations.
-    Returns the iterations launched."""
-    poll = cuda and not lockstep
-    if poll:
-        flags = torch.empty(CHECK_EVERY, dtype=torch.bool, pin_memory=True)
-    launched = 0
-    done = False
-    while not done:
-        pending = []
-        for j in range(CHECK_EVERY):
-            active = running()
-            if poll:
-                flags[j].copy_(active, non_blocking=True)
-                ev = torch.cuda.Event()
-                ev.record()
-                pending.append((j, ev))
-            elif not cuda and not bool(active):
-                done = True
-                break
-            launched += 1
-            step(active)
-            while poll and pending and pending[0][1].query():
-                k, _ = pending.pop(0)
-                if not bool(flags[k]):
-                    done = True
-                    break
-            if done:
-                break
-        if cuda and not done:
-            done = not bool(running())
-    return launched
+#: passes (``loop.MASKED``: the driver's counts, with its loops, starts
+#: and carried iterations beside it)
+MASKED = loop.MASKED
 
 
 def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
@@ -213,11 +167,11 @@ def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
     ``sqrt(|z.r| / res0) <= tol``, at ``max_iter``, or when |z.r| has not
     improved by 1% in ``stall_window`` iterations (the dtype floor).
 
-    The stopping state stays on the device. On the card an iteration
-    past the stop is masked (its step scale is zero, so x, r, p and the
-    counters do not move), which keeps the result identical to the
-    early exit (``_masked_loop``). Returns ``(x, relative |z.r|,
-    iterations)`` with the last two as host numbers."""
+    The stopping state stays on the device. An iteration past the stop
+    is masked (its step scale is zero, so x, r, p and the counters do
+    not move), which keeps the result identical to the early exit
+    (``loop.masked_loop``). Returns ``(x, relative |z.r|, iterations)``
+    with the last two as host numbers."""
     dev = b.device
     res0 = torch.where(res0 == 0.0, torch.ones_like(res0), res0)
     tol = torch.as_tensor(tol, dtype=b.dtype, device=dev)
@@ -249,9 +203,9 @@ def _while_pcg(op, prec, res0, b, tol, x0, max_iter: int,
         st["res"] = torch.where(active, res_new, res)
         st["it"] = st["it"] + active.to(torch.int32)
 
-    launched = _masked_loop(running, step, dev.type == "cuda")
+    launched = loop.masked_loop(running, step, engine)
     n_it = int(st["it"])
-    MASKED[engine] += launched - n_it
+    loop.tally(engine, launched, n_it)
     return st["x"], float(torch.sqrt(st["res"].abs() / res0)), n_it
 
 
@@ -270,7 +224,7 @@ def _while_csym(opc, prec, res0, br, bi, tol, max_iter: int,
     """Complex-symmetric PCG in the bilinear z.r form (the reference's
     PBCGSolve, cspars.cpp:822) on float32 (re, im) pairs, from x0 = 0:
     the JAX package's ``while_loop`` of ``_pcg_csym_pairs`` and
-    ``band.band_csym_pcg`` as a masked host loop (``_masked_loop``).
+    ``band.band_csym_pcg`` as a masked host loop (``loop.masked_loop``).
     It stops when ``sqrt(stop / res0) <= tol`` with ``stop`` = |z.r|, or
     ``stopnorm(r)`` when given, at ``max_iter``, or when |z.r| has not
     improved by 1% in ``stall_window`` iterations. Returns ``(xr, xi,
@@ -322,9 +276,9 @@ def _while_csym(opc, prec, res0, br, bi, tol, max_iter: int,
         st["stop"] = torch.where(active, stop, st["stop"])
         st["it"] = st["it"] + active.to(torch.int32)
 
-    launched = _masked_loop(running, step, dev.type == "cuda")
+    launched = loop.masked_loop(running, step, engine)
     n_it = int(st["it"])
-    MASKED[engine] += launched - n_it
+    loop.tally(engine, launched, n_it)
     return (st["xr"], st["xi"], float(torch.sqrt(st["stop"] / res0)), n_it)
 
 

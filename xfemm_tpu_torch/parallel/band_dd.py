@@ -24,8 +24,8 @@ communicator, whose K1 and sweep launches run one after another on the
 current stream (the sweeps are cooperative persistent launches that
 each want every SM of the card), or the rank's own part under a process
 group (``comm.GroupComm``), on its own card. The CG is f32 (as the JAX
-package's), a masked host loop (``solver._masked_loop``; masked
-iterations in ``solver.MASKED["dd-band"]``) inside the driver's f64
+package's), a masked host loop (``loop.masked_loop``; masked
+iterations in ``loop.MASKED["dd-band"]``) inside the driver's f64
 refinement.
 """
 
@@ -38,8 +38,7 @@ import scipy.sparse as sp
 import torch
 from scipy.sparse import csgraph
 
-from ..ops import blocktri
-from ..ops import solver as solver_mod
+from ..ops import blocktri, loop
 from ..ops.band import BandMatrix, band_matvec
 from ..ops.blocktri import BTFactor
 from .comm import STACKED
@@ -405,11 +404,9 @@ def _pcg_dd(op, prec, rhs, invd, x0, tol, max_iter: int,
         st["res"] = torch.where(active, res_new, res)
         st["it"] = st["it"] + active.to(torch.int32)
 
-    launched = solver_mod._masked_loop(running, step,
-                                       rhs.device.type == "cuda",
-                                       lockstep=comm.lockstep)
+    launched = loop.masked_loop(running, step, "dd-band")
     n_it = int(st["it"])
-    solver_mod.MASKED["dd-band"] += launched - n_it
+    loop.tally("dd-band", launched, n_it)
     return st["x"], float(torch.sqrt(st["stop"].abs() / res0)), n_it
 
 

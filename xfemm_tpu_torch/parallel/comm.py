@@ -72,8 +72,9 @@ class Stacked:
     """Every part on one device: the module's functions as an object,
     so a body takes either communicator as an argument."""
 
-    #: ranks of a group must launch the same loop iterations; stacked
-    #: parts share one host loop and may stop it whenever it is done
+    #: whether several processes must launch the same loop iterations
+    #: (the ranks of a group; ``loop.masked_loop`` stops every rank at
+    #: the same one): one process holds every part here
     lockstep = False
 
     ring_shift = staticmethod(ring_shift)

@@ -9,10 +9,10 @@ the parts (``comm.psum``). The JAX package runs the iteration as one
 ``while_loop`` inside ``shard_map``; here the parts a process holds are
 the slices of a (P, ...) tensor (all of them under the stacked
 communicator, the rank's own under a process group: ``comm.py``) and
-the loop is the solver's masked host loop (``solver._masked_loop``): an
+the loop is the port's masked host loop (``loop.masked_loop``): an
 iteration enqueued past the stop leaves the state unchanged, so the
 result equals the early exit, and such masked iterations are counted in
-``solver.MASKED["dd-halo"]`` / ``["dd-halo-csym"]``.
+``loop.MASKED["dd-halo"]`` / ``["dd-halo-csym"]``.
 
 The path is float64, as in the JAX package (its element blocks, the
 Schwarz hierarchy and the coarse solve are f64), on the card too: it is
@@ -27,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import loop
 from ..ops import solver as solver_mod
 from .comm import STACKED
 from .partition import PartitionedSystem
@@ -182,11 +183,9 @@ def _pcg_shard(da: DeviceArrays, b, x0, diag, tol, max_iter: int,
         st["res"] = torch.where(active, res_new, res)
         st["it"] = st["it"] + active.to(torch.int32)
 
-    launched = solver_mod._masked_loop(running, step,
-                                       b.device.type == "cuda",
-                                       lockstep=comm.lockstep)
+    launched = loop.masked_loop(running, step, "dd-halo")
     n_it = int(st["it"])
-    solver_mod.MASKED["dd-halo"] += launched - n_it
+    loop.tally("dd-halo", launched, n_it)
     return st["x"], float(torch.sqrt(st["res"].abs() / res0)), n_it
 
 
@@ -318,11 +317,9 @@ def _pcg_csym_shard(dc: DeviceArraysC, br, bi, x0r, x0i, dr_, di_, tol,
         st["res_i"] = torch.where(active, nres_i, res_i)
         st["it"] = st["it"] + active.to(torch.int32)
 
-    launched = solver_mod._masked_loop(running, step,
-                                       br.device.type == "cuda",
-                                       lockstep=comm.lockstep)
+    launched = loop.masked_loop(running, step, "dd-halo-csym")
     n_it = int(st["it"])
-    solver_mod.MASKED["dd-halo-csym"] += launched - n_it
+    loop.tally("dd-halo-csym", launched, n_it)
     rel = float(torch.sqrt(torch.hypot(st["res_r"], st["res_i"]) / res0))
     return st["xr"], st["xi"], rel, n_it
 

@@ -16,6 +16,7 @@ import io
 import numpy as np
 import torch
 
+from ..ops import loop
 from ..ops import solver as solver_mod
 from . import driver, halo, partition
 from .comm import STACKED, GroupComm
@@ -61,7 +62,8 @@ def linear_solves(group, device, real, eddy, tol: float) -> dict:
     communicator (``"stacked"``), in the same process environment (one
     host thread: LAPACK's rounding follows its thread count), as their
     reference. Returns each one's (x, relative residual, iterations),
-    and the band engine's CG per refinement pass."""
+    the band engine's CG per refinement pass, and the loop driver's
+    (runs, carried, masked) per engine over the four solves."""
     comm = GroupComm(group)
     out = {"group": _solves(comm.world, group, comm, device, real, eddy,
                             tol),
@@ -75,6 +77,7 @@ def linear_solves(group, device, real, eddy, tol: float) -> dict:
 def _solves(P, mesh, comm, device, real, eddy, tol: float) -> dict:
     blocks, b, fixed, fvals, coords = real
     out = {}
+    loop.reset()
     sess = driver.DistributedSession(P, mesh=mesh, device=device)
     out["band_dd"] = sess.solve(_blocks(blocks), b, fixed, fvals, tol,
                                 coords=coords)
@@ -90,6 +93,8 @@ def _solves(P, mesh, comm, device, real, eddy, tol: float) -> dict:
                                       device=device)
     out["csym"] = csess.solve_complex(_blocks(cblocks), cb, cfixed, cfvals,
                                       tol, coords=ccoords)
+    out["loops"] = {e: (loop.LOOPS[e], loop.CARRIED[e], loop.MASKED[e])
+                    for e in loop.ENGINES if loop.LOOPS[e]}
     return out
 
 
