@@ -30,6 +30,7 @@ import numpy as np
 
 from ..constants import DEG, PI, FileType
 from ..geometry.problem import BdryFormat, Problem
+from ..utils.profiling import phase
 from . import core
 from .meshdata import AirGapElement, MeshData
 
@@ -263,16 +264,17 @@ def _tri_to_meshdata(tr: core.Triangulation) -> MeshData:
 
 def mesh_problem(problem: Problem) -> MeshData:
     """Mesh a problem document. Dispatches like fmesher/main.cpp:88-101."""
-    for lab in problem.labellist:
-        lab.IsSelected = False
-    for ent in list(problem.linelist) + list(problem.arclist):
-        ent.IsSelected = False
-        ent.cnt = 0
-    if has_periodic_bc(problem):
-        mesh = _mesh_periodic(problem)
-    else:
-        mesh = _mesh_plain(problem)
-    _assign_default_label(problem, mesh)
+    with phase("mesh"):
+        for lab in problem.labellist:
+            lab.IsSelected = False
+        for ent in list(problem.linelist) + list(problem.arclist):
+            ent.IsSelected = False
+            ent.cnt = 0
+        if has_periodic_bc(problem):
+            mesh = _mesh_periodic(problem)
+        else:
+            mesh = _mesh_plain(problem)
+        _assign_default_label(problem, mesh)
     return mesh
 
 

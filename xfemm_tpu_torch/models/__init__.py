@@ -8,15 +8,22 @@ class of the reference: planar and axisymmetric magnetostatics
 problems (models/harmonic.py, models/harmonicaxi.py), heat flow
 (models/heatflow.py) and electrostatics (models/electrostatics.py).
 Keyword arguments (``device``, ``hbm_bytes``, ...) go to the family's
-``solve``.
+``solve``. Each call is one request of the tracer (``utils/profiling``):
+the root span "solve", whose id every span under it carries.
 """
 
 from __future__ import annotations
 
 from ..constants import FileType, ProblemType
+from ..utils.profiling import phase
 
 
 def solve(problem, mesh, **kw):
+    with phase("solve"):
+        return _dispatch(problem, mesh, **kw)
+
+
+def _dispatch(problem, mesh, **kw):
     if problem.filetype == FileType.MAGNETICS:
         if problem.Frequency != 0:
             if problem.ProblemType == ProblemType.AXISYMMETRIC:

@@ -35,7 +35,7 @@ from ..geometry.problem import Problem
 from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..parallel import driver as dd_driver
-from ..utils import profiling
+from ..utils.profiling import phase
 from .magnetostatics import (MagSolution, PackedMagnetostatic, _device_chain,
                              _element_blocks, _rhs, pack)
 
@@ -95,10 +95,10 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     assert problem.ProblemType == ProblemType.AXISYMMETRIC
     dev = solver.resolve_device(device)
     dsess = dd_driver.session(devices, device_mesh, dev)
-    with profiling.phase("pack"):
+    with phase("pack"):
         pk = pack(problem, mesh)
     c = C_APOT
-    with profiling.phase("geometry"):
+    with phase("geometry"):
         geom = assembly.axi_geometry(pk.xy, pk.tris)
         _circuit_preprocess_axi(pk, geom)
         Mx, My, Mxy = assembly.axi_curl_matrices(geom)
@@ -182,7 +182,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 and res >= 3e4 * problem.Precision
                 and sess.band_amg is not None):
             dn, has_lam = dev_state
-            with profiling.phase("device newton"):
+            with phase("device newton", device=True):
                 V, relax_d, res, lastres, steps, cgit = _device_chain(
                     dn, has_lam, sess, V, relax, res, lastres,
                     float(it + it_shift), problem.Precision, dev, axi=True,
@@ -202,7 +202,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         Mn = np.zeros((T, 3, 3))
         be = be_static
         if it > 0:
-            with profiling.phase("newton host"):
+            with phase("newton host"):
                 Vl = pk.rsign[pk.tris] * V[pk.ridx[pk.tris]]
                 # B^2 from the energy quadratic form (staticaxi.cpp:510-521)
                 MxMy0 = Mx + My
@@ -250,7 +250,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 Mn = np.where(nl[:, None, None], Mn, 0.0)
                 be = be + np.einsum("tjk,tk->tj", Mn, Vl)
 
-        with profiling.phase("element matrices"):
+        with phase("element matrices"):
             Me = (Mx / mu2[:, None, None] + My / mu1[:, None, None] + Mn)
             blocks = _element_blocks(pk, Me)
             b = _rhs(pk, geom, be)
@@ -268,7 +268,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
 
         V_old = V
         if dsess is not None:
-            with profiling.phase("distributed solve"):
+            with phase("distributed solve"):
                 V, rel_resid, cg_iters = dsess.solve(
                     blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
                     x0=V if it > 0 else None, coords=dof_coords)
@@ -305,10 +305,11 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         # maps, intermediate Newton iterations can run on the device
         if it == 0 and use_device and dev_state is None:
             from ..ops import newton as newton_dev
-            b_static = _rhs(pk, geom, be_static)
-            dev_state = newton_dev.setup(pk, geom, Mx, My, sess, b_static,
-                                         c, axi=True, device=dev,
-                                         hbm=hbm_bytes)
+            with phase("newton loop setup", device=True):
+                b_static = _rhs(pk, geom, be_static)
+                dev_state = newton_dev.setup(pk, geom, Mx, My, sess,
+                                             b_static, c, axi=True,
+                                             device=dev, hbm=hbm_bytes)
 
     # flux output: A_i = V_i * c * 2*pi*r_m (staticaxi.cpp:779-784)
     Vfull = V[pk.ridx] * pk.rsign

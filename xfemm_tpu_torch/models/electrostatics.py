@@ -25,7 +25,7 @@ from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
 from ..parallel import driver as dd_driver
-from ..utils import profiling
+from ..utils.profiling import phase
 from .heatflow import compute_node_Q, conductor_prolongation, \
     decode_markers
 
@@ -72,15 +72,15 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
     labels = [l for l in problem.labellist if not l.is_hole()]
     mats = problem.blockproplist
     conductors = problem.circproplist
-    with profiling.phase("elec element properties"):
+    with phase("elec element properties"):
         blk = np.array([labels[i].BlockType for i in mesh.element_labels])
 
-    with profiling.phase("elec marker decoding"):
+    with phase("elec marker decoding"):
         node_pp, node_cond, edge_bdry, edge_cond = decode_markers(mesh)
         ridx, rsign, nred, cond_dof = conductor_prolongation(
             N, mesh.pbc_pairs, node_cond, conductors)
 
-    with profiling.phase("elec static setup"):
+    with phase("elec static setup"):
         geom = assembly.tri_geometry(xy, tris)
         area = np.asarray(geom.area)
         rc = xy[tris][:, :, 0].mean(axis=1)
@@ -145,12 +145,12 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
             if cond.CircType == 0 and cond_dof[ci] >= 0:
                 b_extra[cond_dof[ci]] += 1e9 * c * cond.q
 
-    with profiling.phase("elec element properties"):
+    with phase("elec element properties"):
         ex = np.array([mats[b].ex for b in blk])
         ey = np.array([mats[b].ey for b in blk])
         qv = np.array([mats[b].qv for b in blk])
 
-    with profiling.phase("elec assembly"):
+    with phase("elec assembly"):
         Kx = -dep_el * ex / (4.0 * area) / kludge
         Ky = -dep_el * ey / (4.0 * area) / kludge
         Me = (Kx[:, None, None] * geom.p[:, :, None] * geom.p[:, None, :]
@@ -199,7 +199,7 @@ def solve(problem: Problem, mesh: MeshData, devices: int | None = None,
     V = np.asarray(V)
     Vn = V[ridx] * rsign
 
-    with profiling.phase("elec conductor results"):
+    with phase("elec conductor results"):
         cond_V = np.zeros(len(conductors))
         cond_q = np.zeros(len(conductors))
         for ci, cond in enumerate(conductors):

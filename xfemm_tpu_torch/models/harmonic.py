@@ -34,7 +34,7 @@ from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
 from ..parallel import driver as dd_driver
-from ..utils import profiling
+from ..utils.profiling import phase
 from .magnetostatics import MagSolution, pack
 
 
@@ -377,7 +377,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     if Aprev is None and problem.PrevSoln:
         from .magnetostatics import load_previous
         Aprev = load_previous(problem, mesh)
-    with profiling.phase("pack"):
+    with phase("pack"):
         pk = pack(problem, mesh)
     c = C_APOT
     w = problem.Frequency * 2.0 * PI
@@ -479,7 +479,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     iters_total = 0
     rel_resid = 0.0
     for it in range(max_newton if nonlinear else 1):
-        with profiling.phase("ac elements"):
+        with phase("ac elements"):
             Mn = np.zeros((T, 3, 3), complex)
             be = be_static.copy()
             if it > 0:
@@ -501,7 +501,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
 
         V_old = V
         if dsess is not None:
-            with profiling.phase("distributed solve"):
+            with phase("distributed solve"):
                 V, rel_resid, cg_iters = dsess.solve_complex(
                     blocks, b, fixed_mask, fixed_vals, problem.Precision,
                     x0=V if it > 0 else None, coords=dof_coords_c)

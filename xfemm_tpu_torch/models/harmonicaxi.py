@@ -28,7 +28,7 @@ from ..mesh.meshdata import MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
 from ..parallel import driver as dd_driver
-from ..utils import profiling
+from ..utils.profiling import phase
 from .harmonic import (ACSetup, _c2_blocks, _circuit_source, _displacement,
                        _edge_blocks, _label_case, _nonlinear_mu, _rhs_c)
 from .magnetostatics import MagSolution, pack
@@ -41,7 +41,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     and ``hbm_bytes`` as for ``harmonic.solve``."""
     assert problem.ProblemType == ProblemType.AXISYMMETRIC
     assert problem.Frequency != 0
-    with profiling.phase("pack"):
+    with phase("pack"):
         pk = pack(problem, mesh)
     c = C_APOT
     w = problem.Frequency * 2.0 * PI
@@ -120,7 +120,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     iters_total = 0
     rel_resid = 0.0
     for it in range(max_newton if nonlinear else 1):
-        with profiling.phase("ac elements"):
+        with phase("ac elements"):
             Mn = np.zeros((T, 3, 3), complex)
             be = be_static.copy()
             if it > 0:
@@ -140,7 +140,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
 
         V_old = V
         if dsess is not None:
-            with profiling.phase("distributed solve"):
+            with phase("distributed solve"):
                 V, rel_resid, cg_iters = dsess.solve_complex(
                     blocks, b, fixed_mask, fixed_vals, problem.Precision,
                     x0=V if it > 0 else None, coords=dof_coords_c)

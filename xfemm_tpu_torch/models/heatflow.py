@@ -34,7 +34,7 @@ from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
 from ..parallel import driver as dd_driver
-from ..utils import profiling
+from ..utils.profiling import phase
 from .magnetostatics import build_prolongation
 
 KSB = 5.67032e-8      # Stefan-Boltzmann (femmconstants.h:26)
@@ -178,11 +178,11 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     tris = mesh.elements
     N = mesh.num_nodes
     T = mesh.num_elements
-    with profiling.phase("heat element properties"):
+    with phase("heat element properties"):
         lbl_bt = np.array([l.BlockType for l in labels], np.int64)
         blk = lbl_bt[mesh.element_labels]
 
-    with profiling.phase("heat marker decoding"):
+    with phase("heat marker decoding"):
         node_pp, node_cond, edge_bdry, edge_cond = decode_markers(mesh)
         ridx, rsign, nred, cond_dof = conductor_prolongation(
             N, mesh.pbc_pairs, node_cond, conductors)
@@ -256,7 +256,7 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     dof_coords = np.zeros((nred, 2))
     dof_coords[ridx] = xy
 
-    with profiling.phase("heat element properties"):
+    with phase("heat element properties"):
         mat_npts = np.array([m.npts for m in mats], np.int64)
         mat_kt = np.array([m.Kt for m in mats])
         mat_qv = np.array([m.qv for m in mats])
@@ -458,7 +458,7 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         su = hit[1]
         _HEAT_SETUP_CACHE.move_to_end(ckey)
     else:
-        with profiling.phase("heat static setup"):
+        with phase("heat static setup"):
             su = _setup_static(problem, mesh, labels, mats, conductors,
                                units, axi, depth)
         if fp[0] is not None:
@@ -491,14 +491,14 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         if (dev_heat is not None and dev_runs < 2 and it > 0
                 and res >= 3e4 * problem.Precision
                 and sess.band_amg is not None):
-            with profiling.phase("device heat"):
+            with phase("device heat", device=True):
                 V, res, _steps, cgit = _heat_chain(
                     dev_heat, sess, V, res, problem.Precision, dev)
             iters_total += int(cgit)
             dev_runs += 1
             Vo = V[ridx] * rsign
             continue
-        with profiling.phase("heat assembly"):
+        with phase("heat assembly"):
             blocks, b = system(problem, su, Vo, Tp)
 
         # inexact forcing: early successive-substitution iterations only
@@ -519,7 +519,7 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
 
         V_old = V
         if dsess is not None:
-            with profiling.phase("distributed solve"):
+            with phase("distributed solve"):
                 V, rel_resid, cg_iters = dsess.solve(
                     blocks, b, su.fixed_mask, su.fixed_vals, tol_it,
                     x0=V if it > 0 else None, coords=su.dof_coords)
@@ -549,7 +549,7 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
         if (it == 0 and dev_heat is None and not su.has_rad
                 and dsess is None
                 and not os.environ.get("XFEMM_TPU_NO_DEVICE_NEWTON")):
-            with profiling.phase("heat loop setup"):
+            with phase("heat loop setup", device=True):
                 dev_heat = _setup_device_heat(problem, su, blocks, b, dev,
                                               hbm_bytes)
             su.dev_heat = (tp_key, dev_heat)
@@ -559,7 +559,7 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     # conductor results: solved T and total flux (ChargeOnConductor,
     # hsolver.cpp:987-1042: gradient of the conductor indicator weighted
     # by the flux density, integrated over adjacent elements)
-    with profiling.phase("heat conductor results"):
+    with phase("heat conductor results"):
         cond_V = np.zeros(len(conductors))
         cond_q = np.zeros(len(conductors))
         for ci, cond in enumerate(conductors):

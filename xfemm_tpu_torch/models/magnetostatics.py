@@ -45,6 +45,7 @@ from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
 from ..parallel import driver as dd_driver
 from ..utils.luaexpr import eval_magdir
+from ..utils.profiling import phase
 
 
 # ---------------------------------------------------------------------- #
@@ -808,7 +809,6 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
     """
     assert problem.ProblemType == ProblemType.PLANAR, \
         "axisymmetric problems solve through models/axisymmetric.py"
-    from ..utils import profiling
     if Aprev is None and problem.PrevSoln:
         Aprev = load_previous(problem, mesh)
     dev = solver.resolve_device(device)
@@ -828,9 +828,9 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         extra = hit[2]
         _PACK_CACHE.move_to_end(ckey)
     else:
-        with profiling.phase("pack"):
+        with phase("pack"):
             pk = pack(problem, mesh)
-        with profiling.phase("geometry"):
+        with phase("geometry"):
             geom = assembly.tri_geometry(pk.xy, pk.tris)
             _circuit_preprocess(pk, geom)
             Mx, My, Mxy = assembly.curl_matrices(geom)
@@ -842,65 +842,67 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             while len(_PACK_CACHE) > _PACK_CACHE_MAX:
                 _PACK_CACHE.popitem(last=False)
 
-    T = pk.tris.shape[0]
-    area = geom.area
+    with phase("static terms"):
+        T = pk.tris.shape[0]
+        area = geom.area
 
-    # element source current density t (circuit contribution)
-    t_src = np.zeros(T)
-    if pk.circuits:
-        cJ = np.array([complex(c.J).real for c in pk.circuits])
-        cdV = np.array([complex(c.dV).real for c in pk.circuits])
-        cCase = np.array([c.Case for c in pk.circuits])
-        ci = pk.circuit
-        has = ci >= 0
-        cis = np.where(has, ci, 0)
-        t_src = np.where(has,
-                         np.where(cCase[cis] == 1, cJ[cis],
-                                  -cdV[cis] * pk.Cduct),
-                         0.0)
+        # element source current density t (circuit contribution)
+        t_src = np.zeros(T)
+        if pk.circuits:
+            cJ = np.array([complex(c.J).real for c in pk.circuits])
+            cdV = np.array([complex(c.dV).real for c in pk.circuits])
+            cCase = np.array([c.Case for c in pk.circuits])
+            ci = pk.circuit
+            has = ci >= 0
+            cis = np.where(has, ci, 0)
+            t_src = np.where(has,
+                             np.where(cCase[cis] == 1, cJ[cis],
+                                      -cdV[cis] * pk.Cduct),
+                             0.0)
 
-    # static RHS pieces: sources (static2d.cpp:483-507) and magnetization
-    # (static2d.cpp:584-598). Edge-j magnetization term K_j adds to the
-    # endpoints j and j+1, so be[j] = src + K_j + K_{j-1}.
-    src = -(pk.Jre + t_src) * area / 3.0
-    v = pk.xy[pk.tris]  # (T,3,2)
-    nxt = np.roll(np.arange(3), -1)
-    prv_of = np.array([2, 0, 1])
-    dxe = v[:, nxt, 0] - v[:, :, 0]
-    dye = v[:, nxt, 1] - v[:, :, 1]
-    th = pk.magdir * PI / 180.0
-    Kmag = 0.0001 * pk.Hc[:, None] * (
-        np.cos(th)[:, None] * dxe + np.sin(th)[:, None] * dye) / 2.0
-    be_static = src[:, None] + Kmag + Kmag[:, prv_of]
+        # static RHS pieces: sources (static2d.cpp:483-507) and magnetization
+        # (static2d.cpp:584-598). Edge-j magnetization term K_j adds to the
+        # endpoints j and j+1, so be[j] = src + K_j + K_{j-1}.
+        src = -(pk.Jre + t_src) * area / 3.0
+        v = pk.xy[pk.tris]  # (T,3,2)
+        nxt = np.roll(np.arange(3), -1)
+        prv_of = np.array([2, 0, 1])
+        dxe = v[:, nxt, 0] - v[:, :, 0]
+        dye = v[:, nxt, 1] - v[:, :, 1]
+        th = pk.magdir * PI / 180.0
+        Kmag = 0.0001 * pk.Hc[:, None] * (
+            np.cos(th)[:, None] * dxe + np.sin(th)[:, None] * dye) / 2.0
+        be_static = src[:, None] + Kmag + Kmag[:, prv_of]
 
-    # initial permeabilities (static2d.cpp:603-631)
-    lt = pk.lam_type
-    f = pk.lam_fill
-    mu1 = np.where(lt == 0, pk.mu_x * f + (1 - f),
-                   np.where(lt == 1, pk.mu_x * f + (1 - f),
-                            np.where(lt == 2,
-                                     pk.mu_y / (f + pk.mu_y * (1 - f)), 1.0)))
-    mu2 = np.where(lt == 0, pk.mu_y * f + (1 - f),
-                   np.where(lt == 1, pk.mu_x / (f + pk.mu_x * (1 - f)),
-                            np.where(lt == 2, pk.mu_y * f + (1 - f), 1.0)))
+        # initial permeabilities (static2d.cpp:603-631)
+        lt = pk.lam_type
+        f = pk.lam_fill
+        mu1 = np.where(lt == 0, pk.mu_x * f + (1 - f),
+                       np.where(lt == 1, pk.mu_x * f + (1 - f),
+                                np.where(lt == 2,
+                                         pk.mu_y / (f + pk.mu_y * (1 - f)),
+                                         1.0)))
+        mu2 = np.where(lt == 0, pk.mu_y * f + (1 - f),
+                       np.where(lt == 1, pk.mu_x / (f + pk.mu_x * (1 - f)),
+                                np.where(lt == 2, pk.mu_y * f + (1 - f), 1.0)))
 
-    nonlinear = bool(pk.nonlinear.any())
-    nl = pk.nonlinear
-    Mxy_v12 = 0.0
-    if Aprev is not None and nonlinear:
-        # incremental/frozen permeability: the B-H elements become
-        # linear with a tensor permeability about the DC offset
-        B1p, B2p = prev_element_B(problem, mesh, Aprev)
-        mu1i, mu2i, v12 = incremental_mu(problem, pk, B1p, B2p,
-                                         problem.blockproplist)
-        mu1 = np.where(nl, mu1i, mu1)
-        mu2 = np.where(nl, mu2i, mu2)
-        Mxy_v12 = Mxy * v12[:, None, None]
-        nonlinear = False
+        nonlinear = bool(pk.nonlinear.any())
+        nl = pk.nonlinear
+        Mxy_v12 = 0.0
+        if Aprev is not None and nonlinear:
+            # incremental/frozen permeability: the B-H elements become
+            # linear with a tensor permeability about the DC offset
+            B1p, B2p = prev_element_B(problem, mesh, Aprev)
+            mu1i, mu2i, v12 = incremental_mu(problem, pk, B1p, B2p,
+                                             problem.blockproplist)
+            mu1 = np.where(nl, mu1i, mu1)
+            mu2 = np.where(nl, mu2i, mu2)
+            Mxy_v12 = Mxy * v12[:, None, None]
+            nonlinear = False
 
-    # representative coordinates per reduced DOF (band ordering)
-    dof_coords = np.zeros((pk.nreduced, 2))
-    dof_coords[pk.ridx] = pk.xy
+        # representative coordinates per reduced DOF (band ordering)
+        dof_coords = np.zeros((pk.nreduced, 2))
+        dof_coords[pk.ridx] = pk.xy
 
     # one Session per device: a CPU band must not serve a CUDA run
     _skey = ("sess", str(dev))
@@ -981,7 +983,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 and tol_it > problem.Precision
                 and (dev_runs == 0 or res > 1e-3)
                 and sess.band_amg is not None):
-            with profiling.phase("device newton"):
+            with phase("device newton", device=True):
                 # at iteration 0 no Newton displacement exists yet; the
                 # unit sentinel makes the loop run and reproduces the
                 # host's initial 1e-4 forcing tolerance
@@ -1009,7 +1011,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
         Mn = np.zeros((T, 3, 3))
         be = be_static
         if it > 0 or (warm and nonlinear):
-            with profiling.phase("newton host"):
+            with phase("newton host"):
                 # element B + Newton matrices, only for the nonlinear
                 # subset (static2d.cpp:691-796); linear elements keep mu
                 ns = np.nonzero(nl)[0]
@@ -1064,7 +1066,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
                 be = be_static.copy()
                 be[ns] += np.einsum("tjk,tk->tj", Mns, Vl)
 
-        with profiling.phase("element matrices"):
+        with phase("element matrices"):
             fresh_full = False
             if Me is None:
                 # first host pass of this solve; the initial-mu blocks
@@ -1105,7 +1107,7 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
 
         V_old = V
         if dsess is not None:
-            with profiling.phase("distributed solve"):
+            with phase("distributed solve"):
                 V, rel_resid, cg_iters = dsess.solve(
                     blocks, b, pk.fixed_mask, pk.fixed_vals, tol_it,
                     x0=V if (it > 0 or warm) else None, coords=dof_coords)
@@ -1154,30 +1156,32 @@ def solve(problem: Problem, mesh: MeshData, max_newton: int = 100,
             from ..ops import newton as newton_dev
             made = extra.get(_dkey)
             if made is None:
-                made = newton_dev.setup(pk, geom, Mx, My, sess, b_base, c,
-                                        device=dev, hbm=hbm_bytes)
+                with phase("newton loop setup", device=True):
+                    made = newton_dev.setup(pk, geom, Mx, My, sess, b_base,
+                                            c, device=dev, hbm=hbm_bytes)
                 if made is not None:
                     extra[_dkey] = made
             dev_state = made
 
-    # expand back to full nodes, convert to A (static2d.cpp:1018-1021)
-    Vfull = V[pk.ridx] * pk.rsign
-    A = Vfull * c
+    with phase("solution"):
+        # expand back to full nodes, convert to A (static2d.cpp:1018-1021)
+        Vfull = V[pk.ridx] * pk.rsign
+        A = Vfull * c
 
-    # per-label circuit info (WriteStatic2D:1122-1148)
-    labels = [l for l in problem.labellist if not l.is_hole()]
-    label_case = np.zeros((len(labels), 2))
-    seen = dict(zip(pk.lbl.tolist(), pk.circuit.tolist()))
-    for k in range(len(labels)):
-        ci = seen.get(k, -1)
-        if ci < 0:
-            label_case[k] = (1, 0.0)
-        else:
-            circ = pk.circuits[ci]
-            if circ.Case == 0:
-                label_case[k] = (0, circ.dV.real if isinstance(circ.dV, complex) else circ.dV)
+        # per-label circuit info (WriteStatic2D:1122-1148)
+        labels = [l for l in problem.labellist if not l.is_hole()]
+        label_case = np.zeros((len(labels), 2))
+        seen = dict(zip(pk.lbl.tolist(), pk.circuit.tolist()))
+        for k in range(len(labels)):
+            ci = seen.get(k, -1)
+            if ci < 0:
+                label_case[k] = (1, 0.0)
             else:
-                label_case[k] = (1, circ.J.real if isinstance(circ.J, complex) else circ.J)
+                circ = pk.circuits[ci]
+                if circ.Case == 0:
+                    label_case[k] = (0, circ.dV.real if isinstance(circ.dV, complex) else circ.dV)
+                else:
+                    label_case[k] = (1, circ.J.real if isinstance(circ.J, complex) else circ.J)
 
     return MagSolution(problem=problem, mesh=mesh, A=A,
                        circuits=pk.circuits, label_case=label_case,

@@ -35,6 +35,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.profiling import phase
 from . import kernels, loop
 from .amg import JACOBI_OMEGA, lambda_max_est
 
@@ -387,9 +388,8 @@ def setup_fine_band(At: sp.csr_matrix, dtype=torch.float32,
     and is the whole preconditioner. ``At`` is RCM-ordered with
     Dirichlet identity rows. Returns (BandAMG with one level,
     FineLayout)."""
-    from ..utils import profiling
 
-    with profiling.phase("band fine setup"):
+    with phase("band fine setup"):
         A = At.astype(np.float32)
         n = A.shape[0]
         d = np.asarray(A.diagonal(), np.float64)
@@ -471,7 +471,6 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
     factor's bytes fit 1.6 GB and the budget. ``plan_only=True`` does no
     device work and returns (report, None): per-level dicts plus a
     totals entry."""
-    from ..utils import profiling
     from . import blocktri as bt_mod
     from .amg import scaled_inv
 
@@ -495,7 +494,7 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
         # uniform contiguous aggregation in the band ordering
         nc = (n + AGG - 1) // AGG
         agg = np.arange(n) // AGG
-        with profiling.phase("band galerkin"):
+        with phase("band galerkin"):
             P0 = sp.csr_matrix((np.ones(n, np.float32),
                                 (np.arange(n), agg)), shape=(n, nc))
             P = (P0 - sp.diags((omega * invd).astype(np.float32))
@@ -629,7 +628,7 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
                     bt_coarse = {"plan_bt_bytes": fb, "n": cand.shape[0],
                                  "block": bsize}
                 else:
-                    with profiling.phase("bt coarse factor"):
+                    with phase("bt coarse factor"):
                         lay_c = bt_mod.pack_layout(cand, bsize)
                         factor = bt_mod.build_factor(
                             bt_mod.device_maps(lay_c, device), cand.data,
@@ -761,7 +760,7 @@ def setup_band_amg(At: sp.csr_matrix, dtype=torch.float32, sym: bool = False,
                 if (bs_c is not None and 0 < fb_c <= 1.6e9
                         and (budget_bytes is None
                              or used + fb_c <= budget_bytes)):
-                    with profiling.phase("bt coarse smoother"):
+                    with phase("bt coarse smoother"):
                         lay_c2 = bt_mod.pack_layout(pack_target, bs_c)
                         bts = bt_mod.build_factor(
                             bt_mod.device_maps(lay_c2, device),

@@ -24,6 +24,11 @@ launch of a loop: ``LOOPS`` (driver runs), ``STARTS`` (preconditioner
 applications outside the driver: a pass's first and each restart),
 ``CARRIED`` (iterations that moved the state) and ``MASKED``
 (iterations launched past the stop).
+
+While the tracer is on (``utils/profiling``) the driver's events on the
+card keep their times, and ``tally`` records each run's masked tail, the
+device interval of its masked iterations, as a "masked tail" record
+under the open span. On the CPU nothing is recorded.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from __future__ import annotations
 import collections
 
 import torch
+
+from ..utils import profiling
 
 #: iterations the host keeps enqueued ahead of the one whose flag it
 #: reads: iteration j - 1 stays queued on the device while the host
@@ -44,20 +51,38 @@ STARTS = dict.fromkeys(ENGINES, 0)
 CARRIED = dict.fromkeys(ENGINES, 0)
 MASKED = dict.fromkeys(ENGINES, 0)
 
+#: the traced runs whose masked tails ``tally`` has yet to record:
+#: (engine, [(event before step j, step j's flag)] for the steps whose
+#: flags the host did not read as True, event after the last step)
+_TAILS: list = []
+
 
 def reset() -> None:
     """Set every engine's counts to 0."""
     for counts in (LOOPS, STARTS, CARRIED, MASKED):
         for k in counts:
             counts[k] = 0
+    _TAILS.clear()
 
 
 def tally(engine: str, launched: int, carried: int, starts: int = 1):
     """Count a finished loop's iterations: ``launched`` through
-    ``masked_loop``, ``carried`` of them moved the state."""
+    ``masked_loop``, ``carried`` of them moved the state. Called after
+    the caller has read the loop's state from the device; records the
+    masked tail of each of the loop's traced runs."""
     STARTS[engine] += starts
     CARRIED[engine] += carried
     MASKED[engine] += launched - carried
+    mine = [t for t in _TAILS if t[0] == engine]
+    if not mine:
+        return
+    _TAILS[:] = [t for t in _TAILS if t[0] != engine]
+    for _engine, steps, end in mine:
+        end.synchronize()
+        # the first masked step: the rest of the run is masked too
+        start = next((ev for ev, flag in steps if not bool(flag)), None)
+        if start is not None:
+            profiling.device_record("masked tail", start, end, engine)
 
 
 def masked_loop(running, step, engine: str, limit: int | None = None) -> int:
@@ -71,6 +96,7 @@ def masked_loop(running, step, engine: str, limit: int | None = None) -> int:
     slots = IN_FLIGHT + 1
     pending = collections.deque()
     flags = events = None
+    timing = profiling.ENABLED
     launched = 0
     while limit is None or launched < limit:
         active = running()
@@ -78,7 +104,8 @@ def masked_loop(running, step, engine: str, limit: int | None = None) -> int:
             if flags is None:
                 flags = torch.empty(slots, dtype=torch.bool,
                                     pin_memory=True)
-                events = [torch.cuda.Event() for _ in range(slots)]
+                events = [torch.cuda.Event(enable_timing=timing)
+                          for _ in range(slots)]
             # slot j % slots was last read (after its event) at j - 1
             slot = launched % slots
             flags[slot].copy_(active, non_blocking=True)
@@ -95,4 +122,14 @@ def masked_loop(running, step, engine: str, limit: int | None = None) -> int:
                 break
         step(active)
         launched += 1
+    if timing and events is not None:
+        # the launched steps whose flags the host has not read as True
+        # (at a stop, the first of them read False): those whose flag
+        # is False were masked, which ``tally`` reads once the device
+        # has passed them
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        _TAILS.append((engine, [(events[j % slots], flags[j % slots])
+                                for j in range(launched - len(pending),
+                                               launched)], end))
     return launched

@@ -42,6 +42,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..utils.profiling import phase
 from . import loop
 
 #: print one line per band CG pass (engine, iterations, host metric
@@ -720,14 +721,13 @@ def _setup_hierarchy(session: Session, Ap, coords, dev,
     """The band hierarchy of ``session.plan``: the fine level alone in
     the bt-alone regime (``fine_only``; its factor is the whole
     preconditioner), else the full band-AMG hierarchy."""
-    from ..utils import profiling
     from . import band as band_mod
 
     plan = session.plan
     n = Ap.shape[0]
     session.band_flat_idx = None
     if fine_only:
-        with profiling.phase("band setup"):
+        with phase("band setup", device=True):
             session.band_amg, session.band_layout = \
                 band_mod.setup_fine_band(Ap, device=dev)
         return
@@ -736,7 +736,7 @@ def _setup_hierarchy(session: Session, Ap, coords, dev,
     if coords is not None and np.shape(coords)[0] == n:
         coords_p = np.asarray(coords)[perm]
     key_p = session.gpos[perm] if session.gpos is not None else None
-    with profiling.phase("band amg setup"):
+    with phase("band amg setup", device=True):
         session.band_amg, session.band_layout = band_mod.setup_band_amg(
             Ap, sym=plan["sym"], fine_dtype=plan["fine_dtype"],
             bt_coarse_budget=plan["bt_budget"],
@@ -755,14 +755,13 @@ def _build_factor(session: Session, Ap, dev) -> None:
     (bt-alone), or of the KEPT in-band entries of a split fine level
     (the smoother of a partitioned ordering; the sidecar stays in the
     operator)."""
-    from ..utils import profiling
     from . import band as band_mod
     from . import blocktri as bt_mod
 
     n = Ap.shape[0]
     bsize = session.plan["bsize"]
     lay_f = session.band_layout
-    with profiling.phase("bt factor"):
+    with phase("bt factor", device=True):
         session.bt_data_sel = None
         Ap_f = Ap
         if lay_f.keep_sel is not None:
@@ -836,18 +835,17 @@ def _build_band(session: Session, At, coords, dev, hbm: float) -> None:
 
 def _refresh_band(session: Session, At, refactor: bool, dev) -> None:
     """Value-only fine band update (and, when stale, a refactor)."""
-    from ..utils import profiling
     from . import band as band_mod
 
     Ap_data = _permuted_data(At, session.band_data_map)
-    with profiling.phase("band update"):
+    with phase("band update", device=True):
         if session.band_flat_idx is None:
             session.band_flat_idx = band_mod.fine_slot_index(
                 session.band_layout, dev)
         band_mod.update_fine_values(session.band_amg, session.band_layout,
                                     Ap_data, session.band_flat_idx)
     if refactor:
-        with profiling.phase("bt refactor"):
+        with phase("bt refactor", device=True):
             session.bt = _factor(session, Ap_data, dev)
         session.first_iters = None
 
@@ -863,7 +861,6 @@ def _cache_put(session: Session, ckey: bytes) -> None:
 def _prepare_band(session: Session, At, fixed, coords, n: int, dev,
                   hbm: float) -> None:
     """Adopt, refresh or (re)build the band engine state for ``At``."""
-    from ..utils import profiling
 
     if session.no_tier == hbm:
         return
@@ -878,7 +875,7 @@ def _prepare_band(session: Session, At, fixed, coords, n: int, dev,
                 setattr(session, k, cached[k])
             session.first_iters = None
     if session.perm is None:
-        with profiling.phase("ordering"):
+        with phase("ordering"):
             perm, session.partitioned, session.gpos = pick_band_order(
                 At, coords if np.shape(coords)[0] == n else None, hbm)
         iperm = np.empty_like(perm)
@@ -951,7 +948,6 @@ def _fallback_engine(session: Session, At, blocks, fixed, coords, diag64,
     rebuilt when stale (the iteration count past ``refresh_factor`` times
     the first pass's); at a latch-off it is built only when missing, as
     the JAX package does."""
-    from ..utils import profiling
     from . import amg as amg_mod
 
     if coords is not None:
@@ -960,7 +956,7 @@ def _fallback_engine(session: Session, At, blocks, fixed, coords, diag64,
                  and session.last_iters
                  > session.refresh_factor * max(session.first_iters, 1))
         if session.amg is None or stale:
-            with profiling.phase("amg setup"):
+            with phase("amg setup"):
                 host_levels = amg_mod.setup(At, coords, fixed)
                 if host_levels is not None:
                     session.amg = amg_mod.to_device(host_levels, np.float32,
@@ -1004,7 +1000,6 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
     band planner plans against (read from the card when omitted on CUDA;
     required on other devices when the band engine is considered).
     Returns (x, relative_residual, iterations)."""
-    from ..utils import profiling
     from . import band as band_mod
     from . import blocktri as bt_mod
 
@@ -1019,34 +1014,36 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
 
     if session is None:
         session = Session()
-    with profiling.phase("host csr assembly"):
+    with phase("host csr assembly"):
         At = session.csr_values(blocks, n, fixed, changed=changed)
-    diag64 = np.asarray(At.diagonal())
+    with phase("host rhs"):
+        diag64 = np.asarray(At.diagonal())
 
-    # rhs with Dirichlet elimination: fixed rows become identity rows;
-    # b - A g needs the UNELIMINATED couplings to the fixed values
-    g = np.where(fixed, fvals, 0.0)
-    Ag = np.zeros(n)
-    if bool(fixed.any()) and bool(np.any(fvals[fixed] != 0.0)):
-        for blk_ in blocks:
-            idx = np.asarray(blk_.idx)
-            sgn = np.asarray(blk_.sign, np.float64)
-            mat = np.asarray(blk_.mat, np.float64)
-            ye = np.einsum("ekl,el->ek", mat, sgn * g[idx])
-            np.add.at(Ag, idx.reshape(-1), (sgn * ye).reshape(-1))
-    rhs = np.where(fixed, fvals, b64 - Ag)
-    invd = 1.0 / diag64
-    res0 = float(np.dot(invd * rhs, rhs))
-    if res0 == 0.0:
-        res0 = 1.0
-    x = g.copy() if x0 is None else np.where(fixed, fvals,
-                                             np.asarray(x0, np.float64))
+        # rhs with Dirichlet elimination: fixed rows become identity rows;
+        # b - A g needs the UNELIMINATED couplings to the fixed values
+        g = np.where(fixed, fvals, 0.0)
+        Ag = np.zeros(n)
+        if bool(fixed.any()) and bool(np.any(fvals[fixed] != 0.0)):
+            for blk_ in blocks:
+                idx = np.asarray(blk_.idx)
+                sgn = np.asarray(blk_.sign, np.float64)
+                mat = np.asarray(blk_.mat, np.float64)
+                ye = np.einsum("ekl,el->ek", mat, sgn * g[idx])
+                np.add.at(Ag, idx.reshape(-1), (sgn * ye).reshape(-1))
+        rhs = np.where(fixed, fvals, b64 - Ag)
+        invd = 1.0 / diag64
+        res0 = float(np.dot(invd * rhs, rhs))
+        if res0 == 0.0:
+            res0 = 1.0
+        x = g.copy() if x0 is None else np.where(fixed, fvals,
+                                                 np.asarray(x0, np.float64))
 
     use_band = (coords is not None and n > 4 * ROW_TILE_MIN
                 and not session.band_disabled)
     if use_band:
-        _prepare_band(session, At, fixed, coords, n, dev,
-                      device_hbm_bytes(dev, hbm))
+        with phase("band prepare"):
+            _prepare_band(session, At, fixed, coords, n, dev,
+                          device_hbm_bytes(dev, hbm))
         use_band = session.band_amg is not None
     engine = None if use_band else _fallback_engine(
         session, At, blocks, fixed, coords, diag64, dev)
@@ -1057,8 +1054,9 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
     best = (x, np.inf)
     band_stalls = 0
     for _ in range(60):
-        r = rhs - At @ x
-        metric = float(np.sqrt(abs(np.dot(invd * r, r)) / res0))
+        with phase("host residual"):
+            r = rhs - At @ x
+            metric = float(np.sqrt(abs(np.dot(invd * r, r)) / res0))
         if metric < best[1]:
             best = (x.copy(), metric)
         if metric <= tol or total_it >= max_iter:
@@ -1069,7 +1067,7 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
         if not use_band:
             r_d = torch.as_tensor(r / scale, dtype=torch.float32, device=dev)
             x0_d = torch.zeros(n, dtype=torch.float32, device=dev)
-            with profiling.phase("device cg"):
+            with phase("device cg", device=True):
                 if engine[0] == "amg":
                     d_d, _rr, it = _pcg_amg_impl(
                         session.amg, engine[1], engine[2], r_d, inner_tol,
@@ -1084,9 +1082,10 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
                 session.first_iters = it
             session.last_iters = it
             x = x + scale * d_h
-            new_r = rhs - At @ x
-            new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r))
-                                       / res0))
+            with phase("host residual"):
+                new_r = rhs - At @ x
+                new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r))
+                                           / res0))
             _trace(f"{'amg' if engine[0] == 'amg' else 'jacobi'} pass: "
                    f"n={n} it={it} metric {metric:.3e} -> {new_metric:.3e}")
             if new_metric >= metric * 0.9:    # dtype floor reached -- stop
@@ -1109,7 +1108,7 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
                     else "vcycle+bt" if isinstance(session.bt,
                                                    bt_mod.BTSmoother)
                     else "bt" if session.bt is not None else "vcycle")
-        with profiling.phase("device cg"):
+        with phase("device cg", device=True):
             if bf16:
                 # bf16 operator: CG's three-term recurrence diverges on
                 # the (effectively indefinite) perturbed system; GMRES(m)
@@ -1137,8 +1136,10 @@ def solve(blocks, b, fixed_mask, fixed_vals, tol,
             session.first_iters = it
         session.last_iters = it
         x = x + scale * d_h[iperm]
-        new_r = rhs - At @ x
-        new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r)) / res0))
+        with phase("host residual"):
+            new_r = rhs - At @ x
+            new_metric = float(np.sqrt(abs(np.dot(invd * new_r, new_r))
+                                       / res0))
         _trace(f"  metric {metric:.3e} -> {new_metric:.3e}")
         if new_metric >= metric * 0.9:
             if new_metric < best[1]:
@@ -1311,7 +1312,6 @@ def _ac_band_entry(At, n: int, dev, hbm: float):
     band's estimate fails the AC_BAND_GATE."""
     from scipy.sparse.csgraph import reverse_cuthill_mckee
 
-    from ..utils import profiling
     from . import band as band_mod
     from . import blocktri as bt_mod
 
@@ -1338,7 +1338,7 @@ def _ac_band_entry(At, n: int, dev, hbm: float):
     est = _band_bytes_estimate(Ash, band_mod.ROW_TILE)
     if est > AC_BAND_GATE * hbm:
         return None, Ap.data
-    with profiling.phase("band amg setup (ac)"):
+    with phase("band amg setup (ac)"):
         amg, lay = band_mod.setup_band_amg(
             Ash, budget_bytes=AC_HIER_BUDGET * hbm, device=dev)
     ent = {"perm": perm, "iperm": iperm, "amg": amg, "lay": lay,
@@ -1351,7 +1351,7 @@ def _ac_band_entry(At, n: int, dev, hbm: float):
     if bsize is not None:
         fb = bt_mod.factor_bytes(n, bsize)
         if 3 * est + 2 * fb <= AC_FACTOR_GATE * hbm:
-            with profiling.phase("bt factor (ac)"):
+            with phase("bt factor (ac)"):
                 blay = bt_mod.pack_layout(Ash, bsize)
                 ent["bt_maps"] = bt_mod.device_maps(blay, dev)
                 ent["bt_shape"] = (bsize, blay.NB)
@@ -1364,11 +1364,10 @@ def _ac_band_refresh(ent, At) -> np.ndarray:
     """Value-only refresh of an adopted entry: the shifted hierarchy's
     fine level from the cached entry map, and the factor rebuilt (it is
     exact for the current values). Returns the permuted values."""
-    from ..utils import profiling
     from . import band as band_mod
     from . import blocktri as bt_mod
 
-    with profiling.phase("ac band refresh"):
+    with phase("ac band refresh"):
         Ap_data = At.data[ent["dmap"]]
         sh_vals = np.ascontiguousarray(Ap_data.real)
         dpos = ent["diag_pos"]
@@ -1377,7 +1376,7 @@ def _ac_band_refresh(ent, At) -> np.ndarray:
                                                  sh_vals)
     if ent.get("bt") is not None:
         bsize, NB = ent["bt_shape"]
-        with profiling.phase("bt refactor (ac)"):
+        with phase("bt refactor (ac)"):
             ent["bt"] = bt_mod.build_factor(ent["bt_maps"], sh_vals,
                                             b=bsize, NB=NB)
     return Ap_data
@@ -1417,7 +1416,6 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
     counterpart. ``device`` / ``hbm`` as for ``solve``; ``hbm`` is read
     only when the band engine is considered. Returns (x, metric,
     iterations)."""
-    from ..utils import profiling
     from . import band as band_mod
 
     dev = resolve_device(device)
@@ -1429,7 +1427,7 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
     if inner_tol is None:
         inner_tol = max(tol, 1e-5)
 
-    with profiling.phase("ac csr assembly"):
+    with phase("ac csr assembly"):
         At = _ac_csr(blocks, n, fixed)
     diag = np.asarray(At.diagonal())
 
@@ -1511,7 +1509,7 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
             # outer loop restarts from the exact f64 residual until the
             # contract metric is met
             tol_pass = min(0.5, max(0.3 * tol / min(metric, 1.0), 2e-6))
-            with profiling.phase("device gmres (ac)"):
+            with phase("device gmres (ac)"):
                 dr, di, rr, it = band_mod.band_csym_fgmres_fused(
                     band_ent["amg"], band_ent["Aop"], band_ent["Ai"],
                     f32(rs.real), f32(rs.imag), tol_pass,
@@ -1524,7 +1522,7 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
         else:
             pairs_engine()
             rs = r / scale
-            with profiling.phase("device cg (ac pairs)"):
+            with phase("device cg (ac pairs)"):
                 dr, di, rr, it = _pcg_csym_pairs(
                     blocks_ri, f32(rs.real), f32(rs.imag), diag_r, diag_i,
                     fixed_d, inner_tol, int(inner_iter))

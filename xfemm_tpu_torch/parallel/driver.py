@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import solver as solver_mod
-from ..utils import profiling
+from ..utils.profiling import phase
 from . import halo, partition as part
 from .comm import STACKED, GroupComm
 
@@ -150,10 +150,10 @@ class DistributedSession:
         nonzero_g = bool(fixed.any() and np.any(fvals[fixed] != 0.0))
         if self._csr_session is None:
             self._csr_session = solver_mod.Session()
-        with profiling.phase("dd csr assembly"):
+        with phase("dd csr assembly"):
             At = self._csr_session.csr_values(blocks, n, fixed)
         if self._bdd is None and not self._bdd_disabled:
-            with profiling.phase("dd band setup"):
+            with phase("dd band setup"):
                 st = band_dd.setup_band_dd(At, np.asarray(coords),
                                            self.ndev, device=self.device,
                                            comm=self.comm)
@@ -170,7 +170,7 @@ class DistributedSession:
         Ap = st.Ap_pattern
         Ap.data = At.data[self._bdd_map]
 
-        with profiling.phase("dd band refresh"):
+        with phase("dd band refresh"):
             dense, oob_vals, invd_dev = band_dd.device_values(st, Ap)
         stale = (self._bdd_bt is not None and self._bdd_first is not None
                  and self._bdd_last is not None
@@ -178,7 +178,7 @@ class DistributedSession:
                  > self.refresh_factor * max(self._bdd_first, 1))
         if self._bdd_bt is None or stale:
             self._bdd_bt = None
-            with profiling.phase("dd bt factor"):
+            with phase("dd bt factor"):
                 self._bdd_bt = band_dd.build_factors(st, Ap.data)
             self._bdd_first = None
 
@@ -221,7 +221,7 @@ class DistributedSession:
             metric = float(np.sqrt(np.dot(invd * r, r) / res0))
             if metric <= tol:
                 break
-            with profiling.phase("dd cg"):
+            with phase("dd cg"):
                 dx_dev, rr, it = self._bdd_solver(
                     dense, oob_vals, self._bdd_bt, scatter(r), invd_dev,
                     x_zero, inner_tol)
