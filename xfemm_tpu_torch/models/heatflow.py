@@ -68,10 +68,14 @@ def decode_markers(mesh: MeshData):
     em2 = np.where(neg, -em, 0)
     edge_bdry = np.where(neg, (em2 & 0xFFFF) - 2, -1)
     edge_cond = np.where(neg, (em2 >> 16) - 1, -1)
-    for (a, b), ccond in zip(mesh.edges, edge_cond):
-        if ccond >= 0:
-            node_cond[a] = ccond
-            node_cond[b] = ccond
+    # the last conductor edge touching a node sets its conductor
+    hot = np.nonzero(edge_cond >= 0)[0]
+    ends = mesh.edges[hot]
+    last = np.full(len(node_cond), -1, np.int64)
+    np.maximum.at(last, ends[:, 0], hot)
+    np.maximum.at(last, ends[:, 1], hot)
+    touched = last >= 0
+    node_cond[touched] = edge_cond[last[touched]]
     return node_pp, node_cond, edge_bdry, edge_cond
 
 

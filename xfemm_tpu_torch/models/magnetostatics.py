@@ -57,31 +57,12 @@ def build_prolongation(n: int, pbc_pairs: np.ndarray):
 
     Returns (ridx, rsign, nreduced): full node -> reduced DOF index and
     +-1 sign, replicating the row/column folding of spars.cpp:366-474 via
-    a master/slave map (exact for the converged solution).
+    a master/slave map (exact for the converged solution). Reduced DOFs
+    are numbered in the order their roots first appear over the nodes.
     """
     parent = np.arange(n)
     sign = np.ones(n, np.int8)
 
-    def find(i):
-        root = i
-        s = 1
-        while parent[root] != root:
-            s *= sign[root]
-            root = parent[root]
-        # path compression
-        j = i
-        s2 = 1
-        while parent[j] != j:
-            nxt = parent[j]
-            snxt = sign[j]
-            parent[j] = root
-            sign[j] = s
-            s = s // snxt if snxt in (1, -1) else s
-            # recompute properly below
-            j = nxt
-        return root
-
-    # simple two-pass find without fancy compression (n is small enough)
     def find_with_sign(i):
         s = 1
         while parent[i] != i:
@@ -100,16 +81,19 @@ def build_prolongation(n: int, pbc_pairs: np.ndarray):
         # constraint: sa*value[ra] = rel * sb * value[rb]
         parent[rb] = ra
         sign[rb] = rel * sa * sb  # value[rb] = (sa/ (rel*sb)) ... signs are +-1
-    ridx = np.zeros(n, np.int64)
-    rsign = np.zeros(n, np.float64)
-    roots = {}
-    for i in range(n):
-        r, s = find_with_sign(i)
-        if r not in roots:
-            roots[r] = len(roots)
-        ridx[i] = roots[r]
-        rsign[i] = s
-    return ridx, rsign, len(roots)
+    # pointer jumping: every node to its root, its sign the product along
+    # the path (a root's own sign stays 1)
+    while True:
+        grand = parent[parent]
+        if np.array_equal(grand, parent):
+            break
+        sign = sign * sign[parent]
+        parent = grand
+    roots, first, inverse = np.unique(parent, return_index=True,
+                                      return_inverse=True)
+    order = np.empty(len(roots), np.int64)
+    order[np.argsort(first)] = np.arange(len(roots))
+    return order[inverse], sign.astype(np.float64), len(roots)
 
 
 # ---------------------------------------------------------------------- #
