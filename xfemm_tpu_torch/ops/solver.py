@@ -1376,7 +1376,7 @@ def _ac_band_refresh(ent, At) -> np.ndarray:
                                                  sh_vals)
     if ent.get("bt") is not None:
         bsize, NB = ent["bt_shape"]
-        with phase("bt refactor (ac)"):
+        with phase("bt refactor (ac)", device=True):
             ent["bt"] = bt_mod.build_factor(ent["bt_maps"], sh_vals,
                                             b=bsize, NB=NB)
     return Ap_data
@@ -1468,12 +1468,13 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
             band_ent = cached
             Ap_data = _ac_band_refresh(band_ent, At)
         if band_ent is not None:
-            band_ent["Aop"] = band_mod.fill_band_device(
-                band_ent["oplay"], Ap_data.real, band_mod.ROW_TILE,
-                device=dev)
-            band_ent["Ai"] = band_mod.fill_band_device(
-                band_ent["oplay"], Ap_data.imag, band_mod.ROW_TILE,
-                device=dev)
+            with phase("ac band fill", device=True):
+                band_ent["Aop"] = band_mod.fill_band_device(
+                    band_ent["oplay"], Ap_data.real, band_mod.ROW_TILE,
+                    device=dev)
+                band_ent["Ai"] = band_mod.fill_band_device(
+                    band_ent["oplay"], Ap_data.imag, band_mod.ROW_TILE,
+                    device=dev)
 
     blocks_ri = diag_r = diag_i = fixed_d = None
 
@@ -1502,33 +1503,41 @@ def solve_complex(blocks, b, fixed_mask, fixed_vals, tol,
         scale = np.abs(r).max()
         if scale == 0.0:
             break
-        if band_ent is not None:
-            rs = (r / scale)[band_ent["perm"]]
-            # fused restarted GMRES(m): up to 8 cycles per call with
-            # device f32 residual recomputation between cycles; this
-            # outer loop restarts from the exact f64 residual until the
-            # contract metric is met
-            tol_pass = min(0.5, max(0.3 * tol / min(metric, 1.0), 2e-6))
-            with phase("device gmres (ac)"):
-                dr, di, rr, it = band_mod.band_csym_fgmres_fused(
-                    band_ent["amg"], band_ent["Aop"], band_ent["Ai"],
-                    f32(rs.real), f32(rs.imag), tol_pass,
-                    m=ac_gmres_m(band_ent.get("bt") is not None),
-                    bt=band_ent.get("bt"))
-                d_h = (dr.double().cpu().numpy()
-                       + 1j * di.double().cpu().numpy())[band_ent["iperm"]]
-            engine = "band gmres" + (" + bt" if band_ent.get("bt")
-                                     is not None else " + vcycle")
-        else:
-            pairs_engine()
-            rs = r / scale
-            with phase("device cg (ac pairs)"):
-                dr, di, rr, it = _pcg_csym_pairs(
-                    blocks_ri, f32(rs.real), f32(rs.imag), diag_r, diag_i,
-                    fixed_d, inner_tol, int(inner_iter))
-                d_h = (dr.double().cpu().numpy()
-                       + 1j * di.double().cpu().numpy())
+        if band_ent is None:
             engine = "jacobi pairs"
+        elif band_ent.get("bt") is not None:
+            engine = "band gmres + bt"
+        else:
+            engine = "band gmres + vcycle"
+        # one span per pass, named by its engine: the tracer's record of
+        # which engine served each request
+        with phase(f"ac pass ({engine})"):
+            if band_ent is not None:
+                rs = (r / scale)[band_ent["perm"]]
+                # fused restarted GMRES(m): up to 8 cycles per call with
+                # device f32 residual recomputation between cycles; this
+                # outer loop restarts from the exact f64 residual until
+                # the contract metric is met
+                tol_pass = min(0.5, max(0.3 * tol / min(metric, 1.0),
+                                        2e-6))
+                with phase("device gmres (ac)", device=True):
+                    dr, di, rr, it = band_mod.band_csym_fgmres_fused(
+                        band_ent["amg"], band_ent["Aop"], band_ent["Ai"],
+                        f32(rs.real), f32(rs.imag), tol_pass,
+                        m=ac_gmres_m(band_ent.get("bt") is not None),
+                        bt=band_ent.get("bt"))
+                    d_h = (dr.double().cpu().numpy()
+                           + 1j * di.double().cpu().numpy()
+                           )[band_ent["iperm"]]
+            else:
+                pairs_engine()
+                rs = r / scale
+                with phase("device cg (ac pairs)", device=True):
+                    dr, di, rr, it = _pcg_csym_pairs(
+                        blocks_ri, f32(rs.real), f32(rs.imag), diag_r,
+                        diag_i, fixed_d, inner_tol, int(inner_iter))
+                    d_h = (dr.double().cpu().numpy()
+                           + 1j * di.double().cpu().numpy())
         total_it += int(it)
         x = x + scale * d_h
         new_r = rhs - At @ x
