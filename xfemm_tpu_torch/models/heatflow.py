@@ -22,9 +22,10 @@ every pass on the host chain.
 from __future__ import annotations
 
 import collections
+import copy
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -130,7 +131,9 @@ class HeatSetup:
     """The (problem, mesh)-static state of a heat solve (``_setup_static``):
     geometry, marker decoding, the conductor prolongation, fixed DOFs,
     derivative boundary edges, per-element properties, and the solver
-    Session (whose band state lives on one device)."""
+    Session (whose band state lives on one device). Of the problem's
+    properties only the sources ``qv`` may change under it."""
+    mesh: MeshData
     xy: np.ndarray            # (N, 2) node coordinates, meters
     tris: np.ndarray          # (T, 3)
     blk: np.ndarray           # (T,) block property per element
@@ -158,18 +161,49 @@ class HeatSetup:
     axi: bool
     depth: float
     sess: "solver.Session"
-    #: (Tprev key, the K(T) loop's DeviceHeat or None when ineligible),
-    #: once a solve's first pass has built it
+    #: (Tprev key, the K(T) loop's DeviceHeat or None when ineligible,
+    #: the ``qv`` its right-hand side holds), once a solve's first pass
+    #: has built it
     dev_heat: "tuple | None" = None
+    #: (index, value) pairs of the A.g coupling of every element but
+    #: the K(T) ones (``_rhs_nofixed``); () with no nonzero Dirichlet value
+    lift: "tuple | None" = None
 
 
-#: (problem, mesh, device)-static setup of the heat solve, by object
-#: identity and device, validated by the property fingerprint: the
-#: Session it holds keeps tensors on that device, so a CPU solve and a
-#: CUDA solve of the same problem each keep their own
+#: the static setup of the heat solve, keyed by (mesh identity, device,
+#: ``_source_free_fingerprint``) and holding (that fingerprint,
+#: HeatSetup): a new problem on the same mesh that differs only in its
+#: sources takes the setup and refreshes ``qv``. The setup holds its
+#: mesh, so the mesh's id cannot pass to another while it is cached; the
+#: Session keeps tensors on its device, so a CPU solve and a CUDA solve
+#: each keep their own
 _HEAT_SETUP_CACHE: "collections.OrderedDict[tuple, tuple]" = \
     collections.OrderedDict()
 _HEAT_SETUP_CACHE_MAX = 4
+
+
+def _source_free_fingerprint(problem: Problem):
+    """The content hash of everything the static setup depends on (the
+    property fingerprint, ``dT`` and the external region) with every
+    block property's ``qv`` left out; None when it cannot be taken
+    (then nothing is cached)."""
+    from .magnetostatics import _problem_fingerprint
+    bare = copy.copy(problem)
+    try:
+        bare.blockproplist = [replace(m, qv=0.0)
+                              for m in problem.blockproplist]
+    except TypeError:
+        return None
+    fp = _problem_fingerprint(bare)
+    if fp is None:
+        return None
+    return (fp, getattr(problem, "dT", 0.0), problem.extRo, problem.extRi,
+            problem.extZo)
+
+
+def _element_qv(blk, mats) -> np.ndarray:
+    """(T,) volume heat source per element."""
+    return np.array([m.qv for m in mats])[blk]
 
 
 def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
@@ -177,7 +211,7 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     """All (problem, mesh)-static state of the heat solve: geometry,
     marker decoding, conductor prolongation, fixed DOFs, boundary
     edges, per-element property arrays and the solver Session, as a
-    ``HeatSetup``. Cached by content fingerprint in _HEAT_SETUP_CACHE."""
+    ``HeatSetup``. Cached per mesh in _HEAT_SETUP_CACHE."""
     xy = mesh.nodes * units
     tris = mesh.elements
     N = mesh.num_nodes
@@ -263,18 +297,17 @@ def _setup_static(problem, mesh, labels, mats, conductors, units, axi,
     with phase("heat element properties"):
         mat_npts = np.array([m.npts for m in mats], np.int64)
         mat_kt = np.array([m.Kt for m in mats])
-        mat_qv = np.array([m.qv for m in mats])
         nl_el = mat_npts[blk] > 0
         Kt = mat_kt[blk]
-        qv = mat_qv[blk]
+        qv = _element_qv(blk, mats)
     has_rad = any(problem.lineproplist[bi].BdryFormat == 3
                   for _a, _b, bi, _m in bdry_edges)
     nonlinear = bool(nl_el.any()) or has_rad
 
     return HeatSetup(
-        xy=xy, tris=tris, blk=blk, node_pp=node_pp, node_cond=node_cond,
-        edge_bdry=edge_bdry, ridx=ridx, rsign=rsign, nred=nred,
-        cond_dof=cond_dof, geom=geom, area=area, dep_el=dep_el,
+        mesh=mesh, xy=xy, tris=tris, blk=blk, node_pp=node_pp,
+        node_cond=node_cond, edge_bdry=edge_bdry, ridx=ridx, rsign=rsign,
+        nred=nred, cond_dof=cond_dof, geom=geom, area=area, dep_el=dep_el,
         kludge=kludge, fixed_mask=fixed_mask, fixed_vals=fixed_vals,
         bdry_edges=bdry_edges, b_extra=b_extra, dof_coords=dof_coords,
         nonlinear=nonlinear, Kt=Kt, qv=qv, nl_el=nl_el, has_rad=has_rad,
@@ -437,7 +470,6 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     rank of a process group ``device_mesh``; the K(T) loop
     is then not taken, as in the JAX package."""
     from ..mesh.meshdata import resolve_default_labels
-    from .magnetostatics import _problem_fingerprint
     resolve_default_labels(problem, mesh)
     dev = solver.resolve_device(device)
     dsess = dd_driver.session(devices, device_mesh, dev)
@@ -451,24 +483,34 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     mats = problem.blockproplist
     conductors = problem.circproplist
 
-    # (problem, mesh, device)-static setup, cached across repeat solves
-    # (transient chains, parameter sweeps): marker decoding, geometry,
-    # fixed DOFs, boundary edges, per-element property arrays, and the
-    # Session with its band state on ``dev``
-    ckey = (id(problem), id(mesh), str(dev))
-    fp = (_problem_fingerprint(problem), getattr(problem, "dT", 0.0))
-    hit = _HEAT_SETUP_CACHE.get(ckey)
-    if fp[0] is not None and hit is not None and hit[0] == fp:
-        su = hit[1]
-        _HEAT_SETUP_CACHE.move_to_end(ckey)
-    else:
-        with phase("heat static setup"):
-            su = _setup_static(problem, mesh, labels, mats, conductors,
-                               units, axi, depth)
-        if fp[0] is not None:
-            _HEAT_SETUP_CACHE[ckey] = (fp, su)
-            while len(_HEAT_SETUP_CACHE) > _HEAT_SETUP_CACHE_MAX:
-                _HEAT_SETUP_CACHE.popitem(last=False)
+    # the static setup (marker decoding, geometry, fixed DOFs, boundary
+    # edges, per-element property arrays, and the Session with its band
+    # state on ``dev``), kept per mesh across repeat solves (transient
+    # chains, sweeps, a pyFEMM or Lua edit and re-analysis): "built",
+    # "sources" (only qv differs: qv refreshed) or "reused"
+    with phase("heat static setup"):
+        fp = _source_free_fingerprint(problem)
+        ckey = (id(mesh), str(dev), fp)
+        hit = _HEAT_SETUP_CACHE.get(ckey) if fp is not None else None
+        su = hit[1] if hit is not None and hit[1].mesh is mesh else None
+        qv = None if su is None else _element_qv(su.blk, mats)
+        kind = ("built" if su is None
+                else "reused" if np.array_equal(qv, su.qv) else "sources")
+        with phase(f"heat setup ({kind})"):
+            if su is None:
+                su = _setup_static(problem, mesh, labels, mats, conductors,
+                                   units, axi, depth)
+                if fp is not None:
+                    _HEAT_SETUP_CACHE[ckey] = (fp, su)
+                    while len(_HEAT_SETUP_CACHE) > _HEAT_SETUP_CACHE_MAX:
+                        _HEAT_SETUP_CACHE.popitem(last=False)
+            else:
+                _HEAT_SETUP_CACHE.move_to_end(ckey)
+            if kind == "sources":
+                su.qv = qv
+                # the iteration baseline of the factor's staleness test
+                # starts anew, as a fresh Session adopting the band does
+                su.sess.first_iters = None
     ridx, rsign, sess = su.ridx, su.rsign, su.sess
     nonlinear = su.nonlinear
 
@@ -549,14 +591,20 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
             break
 
         # after the it-0 solve has built the band hierarchy and value
-        # maps, intermediate substitution iterations can run on device
-        if (it == 0 and dev_heat is None and not su.has_rad
-                and dsess is None
-                and not os.environ.get("XFEMM_TPU_NO_DEVICE_NEWTON")):
-            with phase("heat loop setup", device=True):
-                dev_heat = _setup_device_heat(problem, su, blocks, b, dev,
-                                              hbm_bytes)
-            su.dev_heat = (tp_key, dev_heat)
+        # maps, intermediate substitution iterations can run on device;
+        # a kept loop under new sources takes this pass's right-hand side
+        if it == 0 and dsess is None and not su.has_rad:
+            if (dev_heat is None
+                    and not os.environ.get("XFEMM_TPU_NO_DEVICE_NEWTON")):
+                with phase("heat loop setup", device=True):
+                    dev_heat = _setup_device_heat(problem, su, blocks, b,
+                                                  dev, hbm_bytes)
+                su.dev_heat = (tp_key, dev_heat, su.qv)
+            elif dev_heat is not None and su.dev_heat[2] is not su.qv:
+                with phase("heat loop setup", device=True):
+                    dev_heat = dev_heat._replace(rhs_pre=_loop_rhs(
+                        problem, su, blocks, b, dev_heat.rhs_pre.device))
+                su.dev_heat = (tp_key, dev_heat, su.qv)
 
     Tn = V[ridx] * rsign
 
@@ -585,6 +633,47 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
                         residual=float(rel_resid))
 
 
+def _lumped_mat(problem: Problem, su: HeatSetup, sel=slice(None)):
+    """The k-independent block matrices of elements ``sel``: the
+    transient lumped term, zero in a steady problem."""
+    dT = getattr(problem, "dT", 0.0)
+    area = su.area[sel]
+    mat_0 = np.zeros((area.shape[0], 3, 3))
+    if dT != 0:
+        Kt_term0 = -su.dep_el[sel] * su.Kt[sel] * area / (3.0 * dT)
+        mat_0 += -Kt_term0[:, None, None] * np.eye(3)[None]
+    return mat_0
+
+
+def _rhs_nofixed(su: HeatSetup, blocks, b) -> np.ndarray:
+    """``b`` with the A.g coupling of every element but the K(T) ones
+    removed. The coupling is matrix-only (the loop runs without
+    radiation, the one boundary whose matrix follows the iterate): its
+    (index, value) pairs are kept in ``su.lift`` and subtracted in the
+    order of the blocks' entries."""
+    fixed_mask, fixed_vals = su.fixed_mask, su.fixed_vals
+    if su.lift is None:
+        su.lift = ()
+        if fixed_mask.any() and np.any(fixed_vals[fixed_mask] != 0.0):
+            g = np.where(fixed_mask, fixed_vals, 0.0)
+            idx, val = [], []
+            for bi_, blkk in enumerate(blocks):
+                bidx = np.asarray(blkk.idx)
+                bsgn = np.asarray(blkk.sign, np.float64)
+                bmat = np.asarray(blkk.mat, np.float64)
+                if bi_ == 0:
+                    bmat = bmat.copy()
+                    bmat[su.nl_el] = 0.0
+                ye = np.einsum("ekl,el->ek", bmat, bsgn * g[bidx])
+                idx.append(bidx.reshape(-1))
+                val.append((bsgn * ye).reshape(-1))
+            su.lift = (np.concatenate(idx), np.concatenate(val))
+    b_nofixed = np.asarray(b, np.float64).copy()
+    if su.lift:
+        np.subtract.at(b_nofixed, *su.lift)
+    return b_nofixed
+
+
 def _setup_device_heat(problem: Problem, su: HeatSetup, blocks, b, dev,
                        hbm_bytes):
     """The loop's device data after the it-0 solve (``newton.setup_heat``,
@@ -594,37 +683,32 @@ def _setup_device_heat(problem: Problem, su: HeatSetup, blocks, b, dev,
     entirely (setup folds the k-independent part back in)."""
     from ..ops import newton as newton_dev
     geom, area, dep_el = su.geom, su.area, su.dep_el
-    fixed_mask, fixed_vals, blk = su.fixed_mask, su.fixed_vals, su.blk
-    dT = getattr(problem, "dT", 0.0)
+    blk = su.blk
     mats = problem.blockproplist
     ce = dep_el / (4.0 * area) / su.kludge
     pq = (geom.p[:, :, None] * geom.p[:, None, :]
           + geom.q[:, :, None] * geom.q[:, None, :])
     mat_k_full = ce[:, None, None] * pq
-    mat_0_full = np.zeros_like(mat_k_full)
-    if dT != 0:
-        Kt_term0 = -dep_el * su.Kt * area / (3.0 * dT)
-        mat_0_full += -Kt_term0[:, None, None] * np.eye(3)[None]
-    g = np.where(fixed_mask, fixed_vals, 0.0)
-    b_nofixed = np.asarray(b, np.float64).copy()
-    if fixed_mask.any() and np.any(fixed_vals[fixed_mask] != 0.0):
-        for bi_, blkk in enumerate(blocks):
-            bidx = np.asarray(blkk.idx)
-            bsgn = np.asarray(blkk.sign, np.float64)
-            bmat = np.asarray(blkk.mat, np.float64)
-            if bi_ == 0:
-                bmat = bmat.copy()
-                bmat[su.nl_el] = 0.0
-            gl = bsgn * g[bidx]
-            ye = np.einsum("ekl,el->ek", bmat, gl)
-            np.subtract.at(b_nofixed, bidx.reshape(-1),
-                           (bsgn * ye).reshape(-1))
     mats_T = {bi2: mats[bi2].Tdata for bi2 in set(blk.tolist())}
     mats_K = {bi2: mats[bi2].Kdata for bi2 in set(blk.tolist())}
     return newton_dev.setup_heat(
-        su.sess, su.ridx, su.rsign, su.tris, fixed_mask, fixed_vals, mats_T,
-        mats_K, blk, mat_k_full, mat_0_full, b_nofixed, device=dev,
-        hbm=hbm_bytes)
+        su.sess, su.ridx, su.rsign, su.tris, su.fixed_mask, su.fixed_vals,
+        mats_T, mats_K, blk, mat_k_full, _lumped_mat(problem, su),
+        _rhs_nofixed(su, blocks, b), device=dev, hbm=hbm_bytes)
+
+
+def _loop_rhs(problem: Problem, su: HeatSetup, blocks, b, device):
+    """The loop's ``rhs_pre`` for this pass's ``b``, as ``setup_heat``
+    builds it: under new sources the loop's matrices, maps and Dirichlet
+    coupling stand, and only the right-hand side follows ``b``."""
+    from ..ops import newton as newton_dev
+    # the loop's changed elements: setup_heat's ``ns``, from the
+    # ``changed`` mask the solves pass
+    ns = np.nonzero(su.nl_el)[0]
+    tn = su.tris[ns]
+    return newton_dev.heat_rhs(
+        _rhs_nofixed(su, blocks, b), su.ridx[tn], su.rsign[tn],
+        _lumped_mat(problem, su, ns), su.fixed_mask, su.fixed_vals, device)
 
 
 def _charge_on_conductor(ci, node_cond, xy, tris, blk, mats, Tn, axi,

@@ -729,12 +729,6 @@ def setup_heat(session, ridx, rsign, tris, fixed, fixed_vals, mats_T,
     g = np.where(fixed, fixed_vals, 0.0)
     gl = sgnT * g[idxT]
     ge_k = np.einsum("tjk,tk->tj", mat_k_full[ns], gl)
-    ge_0 = np.einsum("tjk,tk->tj", mat_0_full[ns], gl)
-    # b_nofixed holds NO A.g correction of the changed elements: fold
-    # their k-independent part in here
-    b_pre = np.asarray(b_nofixed, np.float64).copy()
-    np.add.at(b_pre, scat_idx, -(sgnT.reshape(-1) * ge_0.reshape(-1)))
-    b_pre = np.where(fixed, fixed_vals, b_pre)
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
@@ -743,8 +737,27 @@ def setup_heat(session, ridx, rsign, tris, fixed, fixed_vals, mats_T,
     return DeviceHeat(
         idxT=t(idxT, torch.int64), sgnT=t(sgnT), Tc=t(Tc), Kc=t(Kc),
         mat_k=t(mat_k_full[ns]), mat_0=t(mat_0_full[ns]), ge_k=t(ge_k),
-        rhs_pre=t(b_pre), scat_idx=t(scat_idx, torch.int64),
-        scat_w=t(scat_w), **maps["fields"])
+        rhs_pre=heat_rhs(b_nofixed, idxT, sgnT, mat_0_full[ns], fixed,
+                         fixed_vals, device),
+        scat_idx=t(scat_idx, torch.int64), scat_w=t(scat_w),
+        **maps["fields"])
+
+
+def heat_rhs(b_nofixed, idxT, sgnT, mat_0, fixed, fixed_vals, device):
+    """The heat loop's ``rhs_pre`` (f32 on ``device``): ``b_nofixed``,
+    which holds NO A.g correction of the changed elements (ids ``idxT``,
+    fold signs ``sgnT``), with their k-independent part (``mat_0`` on
+    the Dirichlet values) folded in, and the fixed rows at their values.
+    ``setup_heat`` builds it so; a caller whose sources changed, and
+    nothing else, rebuilds it so from its new ``b_nofixed``."""
+    g = np.where(fixed, fixed_vals, 0.0)
+    ge_0 = np.einsum("tjk,tk->tj", mat_0, sgnT * g[idxT])
+    b_pre = np.asarray(b_nofixed, np.float64).copy()
+    np.add.at(b_pre, idxT.reshape(-1),
+              -(sgnT.reshape(-1) * ge_0.reshape(-1)))
+    b_pre = np.where(fixed, fixed_vals, b_pre)
+    return torch.as_tensor(np.ascontiguousarray(b_pre), dtype=torch.float32,
+                           device=device)
 
 
 def interp_rows(x, xp, fp):
