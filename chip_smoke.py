@@ -3681,7 +3681,6 @@ def clear_solver_caches(torch) -> None:
     solver._BAND_CACHE.clear()
     solver._PATTERN_CACHE.clear()
     solver._CBAND_CACHE.clear()
-    solver._AC_PATTERN_CACHE.clear()
     magnetostatics._PACK_CACHE.clear()
     heatflow._HEAT_SETUP_CACHE.clear()
     torch.cuda.empty_cache()

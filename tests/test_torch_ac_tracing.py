@@ -36,7 +36,7 @@ def fresh(monkeypatch):
     """Empty AC caches and the tracer's sums, spans and switch as they
     were."""
     for mod, name in ((solver, "_CBAND_CACHE"),
-                      (solver, "_AC_PATTERN_CACHE"),
+                      (solver, "_PATTERN_CACHE"),
                       (magnetostatics, "_PACK_CACHE")):
         monkeypatch.setattr(mod, name, collections.OrderedDict())
     monkeypatch.setattr(profiling, "ENABLED", False)
@@ -162,7 +162,7 @@ def test_answers_are_bit_for_bit_with_tracing_on_and_off(fresh, mesh,
     for on in (False, True):
         monkeypatch.setattr(profiling, "ENABLED", on)
         solver._CBAND_CACHE.clear()
-        solver._AC_PATTERN_CACHE.clear()
+        solver._PATTERN_CACHE.clear()
         answers.append([_solve(mesh, f).A for f in (10.0, 400.0)])
     assert profiling.spans()
     for off, on in zip(*answers):

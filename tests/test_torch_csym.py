@@ -157,22 +157,6 @@ def test_band_csym_fgmres_fused_matches_jax(captured, tol, cycles):
     assert tx[2] <= 1e-5 and float(jx[2]) <= 1e-5
 
 
-def test_band_csym_pcg_matches_jax(captured):
-    """Complex-symmetric CG on the bands, preconditioned by the shifted
-    V-cycle (``band_csym_pcg``, not on the engine's default path): x at
-    1e-5 of max|x| at a 1e-5 stop, iteration counts within 10%."""
-    ent = captured["entry"]
-    t = convert.cband_entry(ent)
-    c = captured["call"]
-    jx = jband.band_csym_pcg(ent["amg"], ent["Aop"], ent["Ai"], c["br"],
-                             c["bi"], jnp.asarray(1e-5, jnp.float32), 2000)
-    br, bi = rhs_pair(captured)
-    tx = tband.band_csym_pcg(t["amg"], t["Aop"], t["Ai"], br, bi, 1e-5, 2000)
-    assert abs(tx[3] - int(jx[3])) <= 0.1 * int(jx[3]) and tx[2] <= 1e-5
-    close(tx[0], jx[0])
-    close(tx[1], jx[1])
-
-
 def test_pcg_csym_pairs_matches_jax(captured):
     """Jacobi CG on (re, im) pairs over the element blocks of ACaxi's
     first system (the engine without a band): the same blocks, diagonal,

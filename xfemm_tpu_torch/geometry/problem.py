@@ -8,7 +8,9 @@ and emits packed NumPy arrays for the device pipeline.
 
 from __future__ import annotations
 
+import hashlib
 import math
+import pickle
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -291,6 +293,24 @@ class Problem:
 
 # Heat-flow and electrostatics material properties share the Problem
 # container; they are small dataclasses of their own.
+
+def problem_fingerprint(problem: Problem):
+    """Content hash of a problem's properties and settings: the models
+    key what they keep between solves on it, so that an in-place
+    property edit (femm_compat mutates the document between analyses)
+    misses. None when the property lists are unpicklable (then nothing
+    is kept)."""
+    try:
+        payload = pickle.dumps(
+            (problem.Frequency, problem.LengthUnits, problem.ProblemType,
+             problem.Precision, problem.Depth, problem.PrevSoln,
+             problem.PrevType, problem.nodeproplist, problem.lineproplist,
+             problem.blockproplist, problem.circproplist,
+             problem.labellist), protocol=4)
+    except Exception:
+        return None
+    return hashlib.blake2b(payload, digest_size=16).digest()
+
 
 @dataclass
 class HeatMaterial:

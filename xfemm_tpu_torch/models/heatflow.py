@@ -30,7 +30,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 
 from ..constants import LENGTH_TO_METERS, PI, ProblemType
-from ..geometry.problem import Problem
+from ..geometry.problem import Problem, problem_fingerprint
 from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
@@ -187,14 +187,13 @@ def _source_free_fingerprint(problem: Problem):
     property fingerprint, ``dT`` and the external region) with every
     block property's ``qv`` left out; None when it cannot be taken
     (then nothing is cached)."""
-    from .magnetostatics import _problem_fingerprint
     bare = copy.copy(problem)
     try:
         bare.blockproplist = [replace(m, qv=0.0)
                               for m in problem.blockproplist]
     except TypeError:
         return None
-    fp = _problem_fingerprint(bare)
+    fp = problem_fingerprint(bare)
     if fp is None:
         return None
     return (fp, getattr(problem, "dT", 0.0), problem.extRo, problem.extRi,
@@ -417,15 +416,12 @@ def _heat_chain(dev_heat, sess, V, res: float, precision: float, dev):
     ``newton.run_heat`` dispatches from the host iterate, chained while a
     dispatch ends on its CG budget and still improves (the JAX package's
     rules, steps capped at 30 over the chain). Leaves the session's
-    hierarchy as the loop left it (``newton.rebuild_band_amg``, also in
-    the solver's band cache). Returns ``(V, res, steps,
-    cg_iterations)``."""
+    hierarchy as the loop left it (``newton.keep_loop_band``). Returns
+    ``(V, res, steps, cg_iterations)``."""
     import torch
 
     from ..ops import newton as newton_dev
-    from .magnetostatics import _dn_cg_budget
-    amg = sess.band_amg
-    cg_budget = _dn_cg_budget(sess)
+    cg_budget = newton_dev.dispatch_cg_budget(sess)
     target = max(90.0 * precision, 3e-6)
     Vd = torch.as_tensor(V, dtype=torch.float32, device=dev)
     res_d = res
@@ -434,7 +430,7 @@ def _heat_chain(dev_heat, sess, V, res: float, precision: float, dev):
     for _sub in range(12):
         state = torch.tensor([res_d], dtype=torch.float32, device=dev)
         Vd, dvec, oob_vals, stats = newton_dev.run_heat(
-            dev_heat, amg, Vd, state, tol_floor=max(precision, 3e-7),
+            dev_heat, sess.band_amg, Vd, state, tol_floor=max(precision, 3e-7),
             target_res=target, bt=sess.bt, cg_budget=cg_budget)
         prev_res = res_d
         res_d, ksteps, cg_sub = stats.double().cpu().numpy()
@@ -447,10 +443,7 @@ def _heat_chain(dev_heat, sess, V, res: float, precision: float, dev):
         # the chain must not multiply the per-run step cap
         if steps >= 30:
             break
-    sess.band_amg = newton_dev.rebuild_band_amg(amg, dvec, oob_vals)
-    entry = solver._BAND_CACHE.get(sess.band_ckey)
-    if entry is not None:
-        entry["band_amg"] = sess.band_amg
+    newton_dev.keep_loop_band(sess, dvec, oob_vals)
     return Vd.double().cpu().numpy(), float(res_d), steps, cgit
 
 
@@ -491,7 +484,8 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
     with phase("heat static setup"):
         fp = _source_free_fingerprint(problem)
         ckey = (id(mesh), str(dev), fp)
-        hit = _HEAT_SETUP_CACHE.get(ckey) if fp is not None else None
+        hit = (solver.lru_get(_HEAT_SETUP_CACHE, ckey) if fp is not None
+               else None)
         su = hit[1] if hit is not None and hit[1].mesh is mesh else None
         qv = None if su is None else _element_qv(su.blk, mats)
         kind = ("built" if su is None
@@ -501,11 +495,8 @@ def solve(problem: Problem, mesh: MeshData, Tprev: np.ndarray | None = None,
                 su = _setup_static(problem, mesh, labels, mats, conductors,
                                    units, axi, depth)
                 if fp is not None:
-                    _HEAT_SETUP_CACHE[ckey] = (fp, su)
-                    while len(_HEAT_SETUP_CACHE) > _HEAT_SETUP_CACHE_MAX:
-                        _HEAT_SETUP_CACHE.popitem(last=False)
-            else:
-                _HEAT_SETUP_CACHE.move_to_end(ckey)
+                    solver.lru_put(_HEAT_SETUP_CACHE, ckey, (fp, su),
+                                   _HEAT_SETUP_CACHE_MAX)
             if kind == "sources":
                 su.qv = qv
                 # the iteration baseline of the factor's staleness test

@@ -44,8 +44,8 @@ from ..utils import profiling
 #: enqueues j, and a loop launches at most this many masked iterations
 IN_FLIGHT = 2
 
-ENGINES = ("bt", "band", "ell-amg", "jacobi", "csym-pairs", "band-csym",
-           "dd-halo", "dd-halo-csym", "dd-band")
+ENGINES = ("bt", "band", "ell-amg", "jacobi", "csym-pairs", "dd-halo",
+           "dd-halo-csym", "dd-band")
 LOOPS = dict.fromkeys(ENGINES, 0)
 STARTS = dict.fromkeys(ENGINES, 0)
 CARRIED = dict.fromkeys(ENGINES, 0)
