@@ -827,7 +827,7 @@ def main_path(torch, nodes: int):
     """Two solves of the nonlinear problem on the card (the device
     Newton loop); returns the launch counts and what the checks need."""
     from xfemm_tpu_torch.models import benchprob, magnetostatics
-    from xfemm_tpu_torch.ops import kernels, solver
+    from xfemm_tpu_torch.ops import kernels
 
     t0 = time.time()
     prob = benchprob.build(nodes)
@@ -844,7 +844,7 @@ def main_path(torch, nodes: int):
           f"bt_qbwd {describe_qbwd_plan(kernels, torch, b, bt.Sinv.dtype)}",
           flush=True)
     extra = next(iter(magnetostatics._PACK_CACHE.values()))[2]
-    dn = extra[("dn", str(solver.resolve_device()))][0]
+    dn = extra["dn"][0]
     return launches, band, bt, dn, prob, mesh, sols
 
 
@@ -1383,8 +1383,8 @@ def band_tiers(torch, prob, mesh):
 
 def session_of(device: str):
     from xfemm_tpu_torch.models import magnetostatics
-    extra = next(iter(magnetostatics._PACK_CACHE.values()))[2]
-    return extra[("sess", device)]
+    return next(v[2]["sess"] for k, v in magnetostatics._PACK_CACHE.items()
+                if k[1] == device)
 
 
 def regime_solves(torch, prob, mesh, hbm, label, A_ref):

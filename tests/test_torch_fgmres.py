@@ -110,7 +110,7 @@ def test_temp_bf16_matches_jax_and_golden(fixtures, jax_bf16_plan):
     assert tsol.residual <= 1e-8 and np.isfinite(tsol.A).all()
     scale = np.abs(jsol.A).max()
     assert np.abs(tsol.A - jsol.A).max() <= 1e-5 * scale
-    sess = next(iter(tmag._PACK_CACHE.values()))[2][("sess", "cpu")]
+    sess = next(iter(tmag._PACK_CACHE.values()))[2]["sess"]
     assert sess.plan["fine_dtype"] == "bf16"
     g = ansfile.read_ans(str(fixtures / "Temp.ans.golden"))
     d, idx = cKDTree(mesh.nodes).query(g.mesh.nodes)

@@ -211,8 +211,7 @@ def test_setup_maps_match_jax(fixtures, fused_engine, layout):
     assert (tdn.dvec_rows is not None) == triu
     assert (tdn.oob_upd_pos is not None) == (layout == "sidecar")
     # the maps alone, as _band_refresh_maps returns them
-    sess = next(v for k, v in next(iter(tmag._PACK_CACHE.values()))[2]
-                .items() if k[0] == "sess")
+    sess = next(iter(tmag._PACK_CACHE.values()))[2]["sess"]
     pk = next(iter(tmag._PACK_CACHE.values()))[1][0]
     maps = tnewton._band_refresh_maps(sess, pk.fixed_mask, "cpu")
     assert np.array_equal(maps["ns"], np.nonzero(pk.nonlinear)[0])

@@ -204,4 +204,4 @@ def test_no_device_newton_calls_no_loop(fixtures, fused_engine):
     _check_golden(fixtures, mesh, tsol)
     assert _loops(events["t"]) == []
     extra = next(iter(tmag._PACK_CACHE.values()))[2]
-    assert ("dn", "cpu") not in extra
+    assert "dn" not in extra

@@ -125,7 +125,8 @@ def _same(jsol, tsol):
 
 
 def _session(device="cpu"):
-    return next(iter(tmag._PACK_CACHE.values()))[2][("sess", device)]
+    return next(v[2]["sess"] for k, v in tmag._PACK_CACHE.items()
+                if k[1] == device)
 
 
 def test_small_problem_matches_jax():

@@ -8,6 +8,7 @@ and emits packed NumPy arrays for the device pipeline.
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import math
 import pickle
@@ -310,6 +311,21 @@ def problem_fingerprint(problem: Problem):
     except Exception:
         return None
     return hashlib.blake2b(payload, digest_size=16).digest()
+
+
+def source_free_fingerprint(problem: Problem, source: str):
+    """``problem_fingerprint`` with every block property's ``source``
+    field (the heat model's ``qv``, the magnetostatic model's ``J``)
+    left out: a model keys the set-up it keeps per mesh on it, so that a
+    problem that differs only in its sources takes that set-up. None
+    when it cannot be taken (then nothing is kept)."""
+    bare = copy.copy(problem)
+    try:
+        bare.blockproplist = [replace(m, **{source: 0.0})
+                              for m in problem.blockproplist]
+    except TypeError:
+        return None
+    return problem_fingerprint(bare)
 
 
 @dataclass

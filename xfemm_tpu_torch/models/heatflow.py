@@ -22,15 +22,14 @@ every pass on the host chain.
 from __future__ import annotations
 
 import collections
-import copy
 import math
 import os
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 
 import numpy as np
 
 from ..constants import LENGTH_TO_METERS, PI, ProblemType
-from ..geometry.problem import Problem, problem_fingerprint
+from ..geometry.problem import Problem, source_free_fingerprint
 from ..mesh.meshdata import EdgeMultiplicity, MeshData
 from ..ops import assembly, solver
 from ..ops.solver import ElementBlock
@@ -187,13 +186,7 @@ def _source_free_fingerprint(problem: Problem):
     property fingerprint, ``dT`` and the external region) with every
     block property's ``qv`` left out; None when it cannot be taken
     (then nothing is cached)."""
-    bare = copy.copy(problem)
-    try:
-        bare.blockproplist = [replace(m, qv=0.0)
-                              for m in problem.blockproplist]
-    except TypeError:
-        return None
-    fp = problem_fingerprint(bare)
+    fp = source_free_fingerprint(problem, "qv")
     if fp is None:
         return None
     return (fp, getattr(problem, "dT", 0.0), problem.extRo, problem.extRi,

@@ -134,7 +134,6 @@ def setup(pk, geom, Mx, My, session, b_base, c: float, axi: bool = False,
     idxT = pk.ridx[pk.tris[ns]]
     sgnT = pk.rsign[pk.tris[ns]]
     keep = (~fixed).astype(f32)
-    rhs_base = np.where(fixed, pk.fixed_vals, b_base).astype(f32)
     scat_idx = idxT.reshape(-1)
     scat_w = (-sgnT.reshape(-1) * keep[scat_idx]).astype(f32)
     lts = pk.lam_type[ns]
@@ -155,10 +154,21 @@ def setup(pk, geom, Mx, My, session, b_base, c: float, axi: bool = False,
         idxT=t(idxT, i64), sgnT=t(sgnT), q=t(q), p=t(p), area=t(denom),
         lt=t(lts, i64), fs=t(pk.lam_fill[ns]), bhB=t(pk.bh_B[ns]),
         bhH=t(pk.bh_H[ns]), bhS=t(pk.bh_S[ns]), Mx=t(Mx[ns]), My=t(My[ns]),
-        rhs_base=t(rhs_base), scat_idx=t(scat_idx, i64), scat_w=t(scat_w),
+        rhs_base=newton_rhs(fixed, pk.fixed_vals, b_base, device),
+        scat_idx=t(scat_idx, i64), scat_w=t(scat_w),
         c=torch.tensor(float(c), dtype=torch.float32, device=device),
         **maps["fields"])
     return dn, bool((lts != 0).any())
+
+
+def newton_rhs(fixed, fixed_vals, b_base, device):
+    """The loop's ``rhs_base`` (f32 on ``device``): the iteration-0
+    right-hand side ``b_base`` with the fixed rows at their values.
+    ``setup`` builds it so; a caller whose sources changed, and nothing
+    else, rebuilds it so from its new ``b_base``."""
+    rhs = np.where(fixed, fixed_vals, b_base)
+    return torch.as_tensor(np.ascontiguousarray(rhs), dtype=torch.float32,
+                           device=device)
 
 
 def _band_bytes(lv0) -> int:
