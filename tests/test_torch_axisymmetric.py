@@ -216,3 +216,38 @@ def test_axi_scatter_chain_ends_at_its_floor(fixtures, cpu_only,
     sol = taxi.solve(p, mesh, **ON_CPU)
     assert chains and all(steps == script for steps in chains), chains
     check(sol, mesh, fixtures, jsol, p.Precision)
+
+
+@pytest.mark.parametrize("lam", [0, 1])
+def test_axi_host_pass_updates_the_nonlinear_elements_alone(
+        lam, fixtures, cpu_only, monkeypatch):
+    """Each host Newton pass evaluates |B| and the B-H curve on the
+    nonlinear elements alone (the steel, 1,076 of 12,497 elements), and
+    the answer is the JAX package's, the golden's too where the steel is
+    unlaminated; with LamType 1 at fill 0.9 the laminated branch runs."""
+    monkeypatch.setenv("XFEMM_TPU_NO_DEVICE_NEWTON", "1")
+    rows = []
+    real = tasm.hermite_vdv
+
+    def hermite_vdv(B, *a):
+        rows.append(len(B))
+        return real(B, *a)
+
+    monkeypatch.setattr(tasm, "hermite_vdv", hermite_vdv)
+    p, mesh = load(fixtures)
+    jp = jfemfile.load(str(fixtures / "AxiSolenoid.fem"))
+    if lam:
+        for prob in (p, jp):
+            prob.blockproplist[1].LamType = lam
+            prob.blockproplist[1].LamFill = 0.9
+    sol = taxi.solve(p, mesh, **ON_CPU)
+    steel = int((mesh.element_labels == 1).sum())
+    assert steel == 1076
+    assert rows and set(rows) == {steel}
+    assert len(rows) == sol.newton_iterations - 1
+    jsol = jaxi.solve(jp, jread_mesh(str(fixtures / "AxiSolenoid")))
+    if lam == 0:
+        check(sol, mesh, fixtures, jsol, p.Precision)
+    else:
+        assert sol.residual <= p.Precision
+        assert np.abs(sol.A - jsol.A).max() <= 1e-6 * np.abs(jsol.A).max()
