@@ -32,10 +32,12 @@ ON_CPU = dict(device="cpu", hbm_bytes=1e9)
 
 @pytest.fixture
 def fresh(monkeypatch):
-    """Empty pattern and band caches, the tracer's sums, spans and switch
-    as they were."""
+    """Empty pattern, band and axisymmetric set-up caches, the tracer's
+    sums, spans and switch as they were."""
     for name in ("_BAND_CACHE", "_PATTERN_CACHE"):
         monkeypatch.setattr(solver, name, collections.OrderedDict())
+    monkeypatch.setattr(axisymmetric, "_SETUP_CACHE",
+                        collections.OrderedDict())
     monkeypatch.setattr(profiling, "ENABLED", False)
     profiling.reset()
     yield

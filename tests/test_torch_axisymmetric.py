@@ -56,10 +56,12 @@ def cpu_only(monkeypatch):
         return real(device, hbm)
 
     monkeypatch.setattr(tsolver, "device_hbm_bytes", sized)
-    for cache in (tsolver._BAND_CACHE, tsolver._PATTERN_CACHE):
+    caches = (tsolver._BAND_CACHE, tsolver._PATTERN_CACHE,
+              taxi._SETUP_CACHE)
+    for cache in caches:
         cache.clear()
     yield
-    for cache in (tsolver._BAND_CACHE, tsolver._PATTERN_CACHE):
+    for cache in caches:
         cache.clear()
 
 
